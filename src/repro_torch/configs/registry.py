@@ -1,0 +1,66 @@
+"""Architecture registry: --arch <id> -> ModelConfig (+ reduced smoke configs).
+
+The port's registry holds the dense family, which is what its first
+slice serves. The other architectures of the JAX package are known by
+name and raise ``NotImplementedError`` naming the ``ROADMAP.md`` slice
+that ports them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+from ..models.config import ModelConfig
+from . import h2o_danube_1_8b, phi3_medium_14b, qwen1_5_110b, yi_34b
+
+__all__ = ["ARCHS", "LATER_SLICES", "get_config", "smoke_config"]
+
+ARCHS: Dict[str, ModelConfig] = {
+    "yi-34b": yi_34b.CONFIG,
+    "phi3-medium-14b": phi3_medium_14b.CONFIG,
+    "h2o-danube-1.8b": h2o_danube_1_8b.CONFIG,
+    "qwen1.5-110b": qwen1_5_110b.CONFIG,
+}
+
+# Architectures of the JAX package that later slices of the port add.
+LATER_SLICES: Dict[str, str] = {
+    "mamba2-780m": "slice 2 (SSM and hybrid)",
+    "hymba-1.5b": "slice 2 (SSM and hybrid)",
+    "arctic-480b": "slice 3 (MoE)",
+    "grok-1-314b": "slice 3 (MoE)",
+    "internvl2-1b": "slice 4 (vision and audio frontends)",
+    "musicgen-medium": "slice 4 (vision and audio frontends)",
+}
+
+
+def get_config(name: str) -> ModelConfig:
+    if name in LATER_SLICES:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported yet: it comes with "
+            f"{LATER_SLICES[name]} in ROADMAP.md")
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHS)}")
+    return ARCHS[name]
+
+
+def smoke_config(name: str) -> ModelConfig:
+    """Reduced same-family config: small layers/width/vocab.
+
+    The same reduction as the JAX package's ``smoke_config`` for the
+    dense family, so both sides build the same small model.
+    """
+    cfg = get_config(name)
+    kw = dict(
+        num_layers=2,
+        d_model=64,
+        vocab_size=128,
+        rope_theta=10_000.0,
+    )
+    heads = 4
+    kv = max(1, min(cfg.num_kv_heads, 2))
+    kw.update(num_heads=heads, num_kv_heads=kv, head_dim=16,
+              d_ff=0 if cfg.d_ff == 0 else 128)
+    if cfg.sliding_window > 0:
+        kw.update(sliding_window=16)
+    return dataclasses.replace(cfg, **kw)

@@ -1,0 +1,282 @@
+"""Full language models, PyTorch: params, forward, loss, prefill, decode.
+
+The dense subset of the JAX package's ``models/lm.py``. The per-layer
+body is
+
+  dense   : x += attn(n1(x));  x += mlp(n2(x))
+
+Parameters keep the JAX tree: layer parameters are stacked with a
+leading ``L`` dimension under ``layers``, and where JAX scans over that
+dimension the port loops over indexed slices. Caches are updated in
+place where the JAX serving path donates them.
+
+``remat`` is accepted for signature parity and ignored until training
+is ported. Other families (moe, ssm, hybrid, vlm, audio) raise
+``NotImplementedError``: later slices of ``ROADMAP.md`` port them.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+
+from ..device import resolve_device
+from .config import ModelConfig
+from .layers import (_qkv, attention_apply, attention_decode,
+                     attention_decode_paged, build_attention, build_mlp,
+                     build_rmsnorm, init_kv_cache, mlp_apply, rmsnorm)
+from .modules import Builder, Mode, normal_init
+
+Params = Dict[str, Any]
+Device = Union[str, torch.device, None]
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if (cfg.family != "dense" or cfg.hybrid or cfg.num_experts > 0
+            or cfg.frontend != "none"):
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet "
+            f"(dense only; see the slices in ROADMAP.md)")
+
+
+def _layer(tree: Any, li: int) -> Any:
+    """Layer ``li`` of a stacked tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, li) for k, v in tree.items()}
+    return tree[li]
+
+
+# ---------------------------------------------------------------------------
+# Parameter tree
+# ---------------------------------------------------------------------------
+
+
+def build_layer(b: Builder, cfg: ModelConfig) -> Params:
+    _check_family(cfg)
+    return {"norm1": build_rmsnorm(b, "norm1", cfg.d_model),
+            "attn": build_attention(b, cfg),
+            "norm2": build_rmsnorm(b, "norm2", cfg.d_model),
+            "mlp": build_mlp(b, cfg)}
+
+
+def build_params(b: Builder, cfg: ModelConfig) -> Params:
+    p: Params = {}
+    with b.scope("model"):
+        p["embed"] = b.param("embed", (cfg.vocab_size, cfg.d_model),
+                             ("vocab_tp", "embed"), normal_init(0.02))
+        if not cfg.tie_embeddings:
+            p["head"] = b.param("head", (cfg.d_model, cfg.vocab_size),
+                                ("embed", "vocab_tp"), normal_init(0.02))
+        with b.scope("layers"), b.stacked(cfg.num_layers):
+            p["layers"] = build_layer(b, cfg)
+        p["final_norm"] = build_rmsnorm(b, "final_norm", cfg.d_model)
+    return p
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device: Device = None) -> Params:
+    """Random parameters made on ``device`` from per-path generators
+    seeded by ``seed`` (``device=None`` = the GPU)."""
+    b = Builder(Mode.INIT, seed, cfg.param_torch_dtype(), resolve_device(device))
+    return build_params(b, cfg)
+
+
+def abstract_params(cfg: ModelConfig) -> Params:
+    """The parameter tree as ``meta`` tensors: shapes and dtypes only."""
+    return build_params(Builder(Mode.SHAPE, param_dtype=cfg.param_torch_dtype()), cfg)
+
+
+# ---------------------------------------------------------------------------
+# Layer body (shared by train forward / prefill)
+# ---------------------------------------------------------------------------
+
+
+def layer_apply(cfg: ModelConfig, lp: Params, x: torch.Tensor,
+                positions: torch.Tensor, attention_impl: str = "auto"
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    h = rmsnorm(lp["norm1"], x, cfg.norm_eps)
+    x = x + attention_apply(cfg, lp["attn"], h, positions, attention_impl)
+    h2 = rmsnorm(lp["norm2"], x, cfg.norm_eps)
+    return x + mlp_apply(cfg, lp["mlp"], h2), {}
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head
+# ---------------------------------------------------------------------------
+
+
+def embed_tokens(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x (B,S,D), positions (S,)). Tokens must lie in
+    [0, vocab): ``jnp.take`` clamps out-of-range ids, torch indexing
+    raises."""
+    _check_family(cfg)
+    tokens = batch["tokens"]
+    x = p["embed"][tokens.long()].to(cfg.compute_torch_dtype())
+    S = x.shape[1]
+    return x, torch.arange(S, dtype=torch.int32, device=x.device)
+
+
+def lm_head(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    w = p["embed"].T if cfg.tie_embeddings else p["head"]
+    return torch.einsum("bsd,dv->bsv", x, w.to(cfg.compute_torch_dtype()))
+
+
+# ---------------------------------------------------------------------------
+# Forward / loss
+# ---------------------------------------------------------------------------
+
+
+def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
+            attention_impl: str = "auto", remat: str = "full"
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    x, positions = embed_tokens(cfg, params, batch)
+    for li in range(cfg.num_layers):
+        x, _ = layer_apply(cfg, _layer(params["layers"], li), x, positions,
+                           attention_impl)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return lm_head(cfg, params, x), {}
+
+
+def cross_entropy(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
+                  weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if weights is None:
+        return nll.mean()
+    w = weights.float()
+    return (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# Serving: cache init / prefill / decode
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: Device = None) -> Dict[str, Any]:
+    """Dense per-slot decode cache; ``pos`` is a per-slot clock (B,)."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    kv = init_kv_cache(cfg, batch, max_len, dev)
+    L = cfg.num_layers
+    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
+            "kv": {name: torch.zeros((L,) + a.shape, dtype=a.dtype, device=dev)
+                   for name, a in kv.items()}}
+
+
+def init_paged_cache(cfg: ModelConfig, slots: int, num_blocks: int,
+                     block_size: int, device: Device = None) -> Dict[str, Any]:
+    """Paged decode cache: one physical KV block pool shared by all slots.
+
+    kv k/v are (L, num_blocks, block_size, K, hd); block 0 is the
+    reserved always-zero sentinel that empty block-table entries point
+    at. Position clocks and block tables live host-side in
+    :class:`repro_torch.serve.kvcache.KVCacheManager` and are passed to
+    :func:`decode_chunk` per tick.
+    """
+    _check_family(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    dt = cfg.compute_torch_dtype()
+    return {"kv": {"k": torch.zeros(shape, dtype=dt, device=dev),
+                   "v": torch.zeros(shape, dtype=dt, device=dev)}}
+
+
+def decode_chunk(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                 cache: Dict[str, Any], block_table: torch.Tensor,
+                 pos: torch.Tensor, adv: torch.Tensor,
+                 zero_blocks: Optional[torch.Tensor] = None,
+                 reset_slots: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Continuous-batching step: C tokens per slot against the paged cache.
+
+    tokens: (B,C); block_table: (B,nb); pos: (B,) per-slot clocks; adv:
+    (B,) real tokens this chunk (0 = idle slot). One call serves mixed
+    phases. ``zero_blocks`` (fixed width, padded with NB) zero-epochs
+    recycled physical blocks; ``reset_slots`` resets recurrent state,
+    which the dense family does not have. The pool is updated in place
+    (the JAX engine donates it) and returned in the cache dict.
+    Returns (logits (B,C,V), cache).
+    """
+    kv = cache["kv"]
+    if zero_blocks is not None:
+        NB = kv["k"].shape[1]
+        # padding entries (NB) go to the sentinel block 0, which is zero
+        zb = torch.where(zero_blocks < NB, zero_blocks,
+                         torch.zeros_like(zero_blocks)).long()
+        kv["k"][:, zb] = 0.0
+        kv["v"][:, zb] = 0.0
+
+    x, _ = embed_tokens(cfg, params, {"tokens": tokens})
+    for li in range(cfg.num_layers):
+        lp = _layer(params["layers"], li)
+        hn = rmsnorm(lp["norm1"], x, cfg.norm_eps)
+        att, _ = attention_decode_paged(cfg, lp["attn"], hn, _layer(kv, li),
+                                        block_table, pos, adv)
+        x = x + att
+        h2 = rmsnorm(lp["norm2"], x, cfg.norm_eps)
+        x = x + mlp_apply(cfg, lp["mlp"], h2)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return lm_head(cfg, params, x), cache
+
+
+def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                cache: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One AR step for the whole stack against the dense cache.
+    tokens: (B,1). The cache's K/V are written in place; ``pos``
+    advances in the returned dict."""
+    x, _ = embed_tokens(cfg, params, {"tokens": tokens})
+    pos = cache["pos"]
+    for li in range(cfg.num_layers):
+        lp = _layer(params["layers"], li)
+        hn = rmsnorm(lp["norm1"], x, cfg.norm_eps)
+        att, _ = attention_decode(cfg, lp["attn"], hn, _layer(cache["kv"], li), pos)
+        x = x + att
+        h2 = rmsnorm(lp["norm2"], x, cfg.norm_eps)
+        x = x + mlp_apply(cfg, lp["mlp"], h2)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = lm_head(cfg, params, x)
+    return logits, {**cache, "pos": pos + 1}
+
+
+def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
+            attention_impl: str = "auto", max_len: Optional[int] = None
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Process a full prompt, return last-position logits + primed cache.
+
+    ``max_len`` sizes the KV cache (must exceed S by the planned
+    generation length for full-attention archs; SWA archs allocate the
+    window regardless)."""
+    x, positions = embed_tokens(cfg, params, batch)
+    B, S, _ = x.shape
+    max_len = max_len or S
+    ks, vs = [], []
+    for li in range(cfg.num_layers):
+        lp = _layer(params["layers"], li)
+        hn = rmsnorm(lp["norm1"], x, cfg.norm_eps)
+        _, k_, v_ = _qkv(cfg, lp["attn"], hn, positions[None, :])
+        if cfg.sliding_window > 0 and S > cfg.sliding_window:
+            k_ = k_[:, -cfg.sliding_window:]
+            v_ = v_[:, -cfg.sliding_window:]
+        ks.append(k_)
+        vs.append(v_)
+        x, _ = layer_apply(cfg, lp, x, positions, attention_impl)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = lm_head(cfg, params, x[:, -1:])
+
+    cache = init_cache(cfg, B, max(max_len, 1), x.device)
+    Scache = cache["kv"]["k"].shape[2]
+    for name, emitted in (("k", ks), ("v", vs)):
+        e = torch.stack(emitted)[:, :, -Scache:]          # (L,B,n,K,hd)
+        n = e.shape[2]
+        if cfg.sliding_window > 0:
+            # ring-buffer alignment: position p lives at slot p % Scache;
+            # entries cover positions [S-n, S): roll index 0 -> slot (S-n) % Scache
+            e = torch.roll(e, (S - n) % Scache, dims=2)
+        cache["kv"][name][:, :, :n] = e.to(cache["kv"][name].dtype)
+    cache["pos"] = torch.full((B,), S, dtype=torch.int32, device=x.device)
+    return logits, cache

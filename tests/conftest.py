@@ -37,6 +37,10 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "slow: long-running subprocess/SIGKILL tests; skip with -m 'not slow'")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (hand-written kernels have no CPU mode); "
+        "skips without one")
     budget = os.environ.get("PYTEST_GLOBAL_TIMEOUT")
     if budget:
         # exit=True: no graceful unwind — a hung informer thread would

@@ -6,22 +6,33 @@ Run from the root of a checkout, on a machine with one CUDA card:
   python3 chip_smoke.py
 
 It builds the hand-written kernels from the checkout's sources and
-serves h2o-danube-1.8b at full width and full depth (random weights
+serves h2o-danube-1.8b (dense) and mamba2-780m (ssm) at full width and
+full depth, and runs hymba-1.5b (hybrid) at full width (random weights
 from a seed), in phases:
 
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: nvcc for the CUDA flash-attention library, Triton's JIT
-     for the RMSNorm kernel;
+  2. build: nvcc for the CUDA flash-attention and SSD-chunk libraries,
+     Triton's JIT for the RMSNorm kernel;
   3. RMSNorm kernel vs its plain version;
   4. flash-attention kernel vs its plain version (and its gradient);
-  5. the model in f32: prefill with the flash kernel vs the dense path,
+  4b. SSD-chunk kernel vs its plain version;
+  5. danube in f32: prefill with the flash kernel vs the dense path,
      ServeEngine chunked-prefill first-token logits vs prefill, and a
      request's greedy tokens alone vs beside staggered others;
-  6. serving in bf16 through the Router: 8 requests, 4 slots;
-  7. the kernels line: launches on the main path (phases 5-6), and each
-     kernel's time at the main path's shapes beside its plain version,
-     a PyTorch library call computing the same function, and its bound;
-     before it, a torch.profiler breakdown of serving ticks.
+  6. danube serving in bf16 through the Router: 8 requests, 4 slots;
+     then a torch.profiler breakdown of its serving ticks;
+  8. mamba2 in f32: one layer's ssd_apply on the card (kernel) vs the
+     CPU (plain), ServeEngine first-token logits (sequential SSD
+     decode) vs prefill (chunked, kernel), staggered joins, and a
+     recycled slot vs fresh engines; hymba in f32: prefill with the
+     flash and SSD kernels vs the dense attention path;
+  9. mamba2 serving in bf16 through the Router: the mix of phase 6;
+     then the profile of its serving ticks;
+  10. the kernels line: launches on the two paths (phases 5-6, the
+     dense path; phases 8-9, the ssm/hybrid path), and each kernel's
+     time at its path's shapes (taken after phase 4b) beside its plain
+     version, a PyTorch library call computing the same function where
+     there is one, and its bound.
 
 Any failed check raises, so the exit code is non-zero and no result
 line is printed. Without a CUDA device the script exits with code 1
@@ -44,9 +55,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 ARCH = "h2o-danube-1.8b"
 DEVICE = "cuda"
+SSM_ARCH = "mamba2-780m"
+HYBRID_ARCH = "hymba-1.5b"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 F32_TOL, BF16_TOL = 2e-5, 2e-2     # kernel vs plain, as tests/test_kernels.py
+SSD_TOL = 1e-4                     # SSD chunk vs plain, abs, as tests/test_kernels.py
+# SSD chunk vs plain at model-like decays (da = dt * A, A down to -16),
+# relative: cum reaches -1e3 at Q = 256, where an f32 cum_i - cum_j
+# carries ~1e-4 relative noise between two summation orders.
+SSD_REL_TOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -118,6 +137,12 @@ def kernel_device_ms(fn, kernel: str, n: int = 20):
     return statistics.median(us) / 1e3 if us else None
 
 
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
 def max_abs(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -133,17 +158,29 @@ def rel_err(a, b) -> float:
 def phase_build():
     import torch
     from repro_torch.kernels.build import load_library
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_fwd
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    def build(name, source):
+        t = time.perf_counter()
+        load_library(name, [source])
+        return time.perf_counter() - t
+
     t0 = time.perf_counter()
-    load_library("flash_attention", [fa.SOURCE])
+    with ThreadPoolExecutor(2) as ex:          # one nvcc per source, together
+        jobs = {name: ex.submit(build, name, src) for name, src in
+                (("flash_attention", fa.SOURCE), ("ssd_chunk", ssd_scan.SOURCE))}
+        secs = {name: job.result() for name, job in jobs.items()}
     t1 = time.perf_counter()
     for dt in (torch.float32, torch.bfloat16):
         rmsnorm_fwd(torch.ones(2, 2560, device=DEVICE, dtype=dt),
                     torch.ones(2560, device=DEVICE))
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    log(f"[build] nvcc flash_attention: {t1 - t0:.1f} s; "
+    log(f"[build] nvcc flash_attention: {secs['flash_attention']:.1f} s, "
+        f"ssd_chunk: {secs['ssd_chunk']:.1f} s (in parallel: {t1 - t0:.1f} s); "
         f"triton rmsnorm (f32+bf16 JIT): {t2 - t1:.1f} s")
 
 
@@ -201,50 +238,111 @@ def phase_flash(gen):
         f"dq err {gerr:.3g}")
 
 
-def capture_logits(engine, sink):
-    """Wrap the engine's decode step so each tick's logits land in ``sink``."""
+def ssd_inputs(gen, b, nc, Q, N, H, P, x_dtype, model_like):
+    """The distribution of tests/test_kernels.py (unit normals,
+    dt = softplus(n), da = -|n| * 0.1) or, with ``model_like``, mamba2's
+    init decays da = dt * A with A = -linspace(1, 16, H)."""
+    import torch
+    import torch.nn.functional as F
+    C = torch.randn(b, nc, Q, N, device=DEVICE, generator=gen)
+    B = torch.randn(b, nc, Q, N, device=DEVICE, generator=gen)
+    x = torch.randn(b, nc, Q, H, P, device=DEVICE, generator=gen).to(x_dtype)
+    dt = F.softplus(torch.randn(b, nc, Q, H, device=DEVICE, generator=gen))
+    if model_like:
+        da = dt * -torch.linspace(1.0, 16.0, H, device=DEVICE)
+    else:
+        da = -torch.randn(b, nc, Q, H, device=DEVICE, generator=gen).abs() * 0.1
+    return C, B, x, dt, da
+
+
+def ssd_errs(out, ref):
+    """(max abs error, max of each output's error over its own largest
+    magnitude) over y_diag, states and decays."""
+    ab = max(max_abs(o, r) for o, r in zip(out, ref))
+    rel = max(max_abs(o, r) / max(float(r.abs().max()), 1e-30) for o, r in zip(out, ref))
+    return ab, rel
+
+
+def phase_ssd(gen):
+    import torch
+    from repro_torch.kernels.ssd_scan.ops import ssd_chunk
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref
+    # the JAX tests' shapes and distribution, at their abs bound
+    test_cases = [(2, 3, 16, 8, 4, 16), (1, 2, 32, 16, 2, 8), (1, 1, 64, 32, 3, 16)]
+    # mamba2 (Q = 256, and 100 for a 100-token prompt) and hymba, at their
+    # init's decays, at a relative bound
+    model_cases = [(1, 2, 256, 128, 48, 64), (1, 1, 100, 128, 48, 64),
+                   (1, 2, 256, 16, 50, 64)]
+    worst = {}
+    for x_dtype in (torch.float32, torch.bfloat16):
+        for model_like, cases in ((False, test_cases), (True, model_cases)):
+            for shape in cases:
+                ins = ssd_inputs(gen, *shape, x_dtype, model_like)
+                out = ssd_chunk(*ins)
+                ab, rel = ssd_errs(out, ssd_chunk_ref(*ins))
+                if model_like:
+                    check(rel <= SSD_REL_TOL, f"ssd {shape} {x_dtype} model-like: "
+                                              f"rel err {rel} > {SSD_REL_TOL}")
+                else:
+                    check(ab <= SSD_TOL, f"ssd {shape} {x_dtype}: {ab} > {SSD_TOL}")
+                key = f"{x_dtype} {'model-like rel' if model_like else 'test abs'}"
+                worst[key] = max(worst.get(key, 0.0), rel if model_like else ab)
+    log(f"[ssd] {2 * (len(test_cases) + len(model_cases))} cases vs plain ok; "
+        f"max err {worst}")
+
+
+def capture_logits(engine, sink, widths=None):
+    """Wrap the engine's decode step so each tick's logits land in
+    ``sink`` (and each tick's chunk width C in ``widths``)."""
     step = engine._step
 
-    def wrapped(*args, **kw):
-        logits, cache = step(*args, **kw)
+    def wrapped(params, tokens, *args, **kw):
+        logits, cache = step(params, tokens, *args, **kw)
         sink.append(logits)
+        if widths is not None:
+            widths.append(tokens.shape[1])
         return logits, cache
 
     engine._step = wrapped
 
 
-def phase_model_f32(rng):
-    import torch
-    from repro_torch.configs.registry import get_config
-    from repro_torch.models import lm
-    from repro_torch.serve.engine import ServeEngine
-    cfg = get_config(ARCH).replace(param_dtype="float32", compute_dtype="float32")
-    params = lm.init_params(cfg, SEED, DEVICE)
-    S = 2048
-    prompt = rng.randint(0, cfg.vocab_size, size=S).tolist()
-    toks = torch.tensor([prompt], device=DEVICE)
-    with torch.no_grad():
-        lk, _ = lm.prefill(cfg, params, {"tokens": toks}, attention_impl="kernel")
-        ld, _ = lm.prefill(cfg, params, {"tokens": toks}, attention_impl="dense")
-    torch.cuda.synchronize()
-    e1 = rel_err(lk, ld)
-    check(bool(torch.isfinite(lk).all()) and e1 <= 1e-3,
-          f"prefill kernel vs dense: rel err {e1} > 1e-3")
+def norms_per_tick(cfg, C):
+    """RMSNorm launches of one decode_chunk tick of width C: norm1 (and
+    norm2) per layer, the gated norm once per token of each SSD step,
+    and the final norm."""
+    if cfg.family == "ssm":
+        return cfg.num_layers * (1 + C) + 1
+    if cfg.family == "hybrid":
+        return cfg.num_layers * (2 + C) + 1
+    return 2 * cfg.num_layers + 1
 
+
+def engine_first_token(cfg, params, prompt, lk, chunk):
+    """ServeEngine chunked-prefill first-token logits vs ``lk``, the
+    last-position logits of lm.prefill on the same prompt."""
+    import torch
+    from repro_torch.serve.engine import ServeEngine
+    S = len(prompt)
     eng = ServeEngine(cfg, params, batch_slots=2, max_len=S + 16,
-                      prefill_chunk=128, device=DEVICE, seed=SEED)
+                      prefill_chunk=chunk, device=DEVICE, seed=SEED)
     seen = []
     capture_logits(eng, seen)
     r = eng.submit(prompt, max_new_tokens=4)
     with torch.no_grad():
         eng.run()
     check(r.done, "engine request did not complete")
-    first = seen[math.ceil(S / 128) - 1][0, (S - 1) % 128]
-    e2 = rel_err(first, lk[0, 0])
-    check(e2 <= 2e-3, f"engine first-token logits vs prefill: rel err {e2} > 2e-3")
+    first = seen[math.ceil(S / chunk) - 1][0, (S - 1) % chunk]
+    err = rel_err(first, lk[0, 0])
+    check(err <= 2e-3, f"{cfg.name} engine first-token logits vs prefill: "
+                       f"rel err {err} > 2e-3")
     check(r.generated[0] == int(lk[0, 0].argmax()), "first greedy token differs")
+    return err
 
-    # a request's greedy tokens alone == beside staggered others
+
+def staggered_tokens_equal(cfg, params, rng):
+    """A request's greedy tokens alone == beside staggered others."""
+    import torch
+    from repro_torch.serve.engine import ServeEngine
     prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist() for n in (96, 40, 150)]
     solo = ServeEngine(cfg, params, batch_slots=4, max_len=256, prefill_chunk=16,
                        device=DEVICE, seed=SEED)
@@ -261,15 +359,113 @@ def phase_model_f32(rng):
         mixed.submit(prompts[2], max_new_tokens=12)
         mixed.run()
     check(ra.done and rb.done and ra.generated == rb.generated,
-          f"staggered joins changed greedy tokens: {ra.generated} vs {rb.generated}")
+          f"{cfg.name}: staggered joins changed greedy tokens: "
+          f"{ra.generated} vs {rb.generated}")
+    return len(ra.generated)
+
+
+def phase_model_f32(rng):
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    cfg = get_config(ARCH).replace(param_dtype="float32", compute_dtype="float32")
+    params = lm.init_params(cfg, SEED, DEVICE)
+    S = 2048
+    prompt = rng.randint(0, cfg.vocab_size, size=S).tolist()
+    toks = torch.tensor([prompt], device=DEVICE)
+    with torch.no_grad():
+        lk, _ = lm.prefill(cfg, params, {"tokens": toks}, attention_impl="kernel")
+        ld, _ = lm.prefill(cfg, params, {"tokens": toks}, attention_impl="dense")
+    torch.cuda.synchronize()
+    e1 = rel_err(lk, ld)
+    check(bool(torch.isfinite(lk).all()) and e1 <= 1e-3,
+          f"prefill kernel vs dense: rel err {e1} > 1e-3")
+    e2 = engine_first_token(cfg, params, prompt, lk, 128)
+    n = staggered_tokens_equal(cfg, params, rng)
     log(f"[model f32] {cfg.num_layers} layers d_model {cfg.d_model}: prefill kernel "
         f"vs dense rel err {e1:.3g}; engine first-token vs prefill rel err {e2:.3g}; "
-        f"staggered greedy tokens equal ({len(ra.generated)})")
+        f"staggered greedy tokens equal ({n})")
     del params
     torch.cuda.empty_cache()
 
 
-def phase_serve_bf16(rng):
+def phase_ssm_f32(rng):
+    """mamba2 at full width and depth in f32, and hymba at full width."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import layers, lm
+    from repro_torch.serve.engine import ServeEngine
+    cfg = get_config(SSM_ARCH).replace(param_dtype="float32", compute_dtype="float32")
+    params = lm.init_params(cfg, SEED, DEVICE)
+
+    # one layer's ssd_apply: the card (kernel) vs the CPU (plain), S = 2048
+    S = 2048
+    toks = torch.tensor([rng.randint(0, cfg.vocab_size, size=S).tolist()],
+                        device=DEVICE)
+    lp = tree_map(lambda a: a[0], params["layers"])
+    with torch.no_grad():
+        x, _ = lm.embed_tokens(cfg, params, {"tokens": toks})
+        h = layers.rmsnorm(lp["norm1"], x, cfg.norm_eps)
+        yk, stk = layers.ssd_apply(cfg, lp["ssd"], h, return_state=True)
+        yp, stp = layers.ssd_apply(cfg, tree_map(lambda a: a.cpu(), lp["ssd"]),
+                                   h.cpu(), return_state=True)
+    e_layer = max(rel_err(yk.cpu(), yp), rel_err(stk["state"].cpu(), stp["state"]))
+    check(e_layer <= 1e-3, f"mamba2 layer 0 ssd_apply card vs CPU: rel err "
+                           f"{e_layer} > 1e-3")
+
+    # ServeEngine (sequential SSD decode) vs lm.prefill (chunked, kernel);
+    # 1000 tokens: 4 chunks of 256, the last one padded
+    prompt = rng.randint(0, cfg.vocab_size, size=1000).tolist()
+    with torch.no_grad():
+        lk, _ = lm.prefill(cfg, params, {"tokens": torch.tensor([prompt], device=DEVICE)})
+    check(bool(torch.isfinite(lk).all()), "mamba2 f32 prefill logits not finite")
+    e_eng = engine_first_token(cfg, params, prompt, lk, 128)
+    n = staggered_tokens_equal(cfg, params, rng)
+
+    # two requests through one recycled slot == two fresh engines
+    pa, pb = (rng.randint(0, cfg.vocab_size, size=k).tolist() for k in (40, 60))
+
+    def serve(*prompts):
+        eng = ServeEngine(cfg, params, batch_slots=1, max_len=128, prefill_chunk=16,
+                          device=DEVICE, seed=SEED)
+        reqs = [eng.submit(p_, max_new_tokens=8) for p_ in prompts]
+        with torch.no_grad():
+            eng.run()
+        check(all(r.done for r in reqs), "recycled-slot request did not complete")
+        return [r.generated for r in reqs]
+
+    recycled = serve(pa, pb)
+    fresh = serve(pa) + serve(pb)
+    check(recycled == fresh, f"recycled slot differs from fresh engines: "
+                             f"{recycled} vs {fresh}")
+    log(f"[ssm f32] {cfg.name} {cfg.num_layers} layers d_model {cfg.d_model}: layer-0 "
+        f"ssd_apply card vs CPU rel err {e_layer:.3g}; engine first-token (sequential "
+        f"decode) vs prefill (kernel) rel err {e_eng:.3g}; staggered greedy tokens "
+        f"equal ({n}); recycled slot == fresh engines ({len(recycled[1])} tokens)")
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = get_config(HYBRID_ARCH).replace(param_dtype="float32", compute_dtype="float32")
+    params = lm.init_params(cfg, SEED, DEVICE)
+    toks = torch.tensor([rng.randint(0, cfg.vocab_size, size=2048).tolist()],
+                        device=DEVICE)
+    with torch.no_grad():
+        lk, _ = lm.prefill(cfg, params, {"tokens": toks}, attention_impl="kernel")
+        ld, _ = lm.prefill(cfg, params, {"tokens": toks}, attention_impl="dense")
+    e_h = rel_err(lk, ld)
+    check(bool(torch.isfinite(lk).all()) and e_h <= 1e-3,
+          f"hymba prefill kernel vs dense: rel err {e_h} > 1e-3")
+    log(f"[hybrid f32] {cfg.name} {cfg.num_layers} layers (full depth) d_model "
+        f"{cfg.d_model}, 2048-token prompt, window {cfg.sliding_window}: prefill with "
+        f"the flash and SSD kernels vs dense attention rel err {e_h:.3g}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_serve_bf16(rng, arch):
+    """Serving in bf16 through the Router: 8 requests, prompts uniform in
+    64-512 tokens, 32 new tokens, 4 slots, chunk 16, max_len 1024; before
+    it, a bf16 2048-token lm.prefill."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import launch_counts
@@ -277,15 +473,20 @@ def phase_serve_bf16(rng):
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.router import Router
     from repro_torch.serve.slo import SloTracker
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     check(cfg.param_dtype == "bfloat16" and cfg.compute_dtype == "bfloat16",
-          "danube serves in bf16")
+          f"{arch} serves in bf16")
     params = lm.init_params(cfg, SEED, DEVICE)
     toks = torch.tensor([rng.randint(0, cfg.vocab_size, size=2048).tolist()],
                         device=DEVICE)
+    before = launch_counts()
     with torch.no_grad():
         lk, _ = lm.prefill(cfg, params, {"tokens": toks}, attention_impl="kernel")
     check(bool(torch.isfinite(lk.float()).all()), "bf16 prefill logits not finite")
+    if cfg.family == "ssm":
+        n_ssd = launch_counts()["ssd_chunk"] - before["ssd_chunk"]
+        check(n_ssd == cfg.num_layers, f"bf16 prefill made {n_ssd} SSD launches, "
+                                       f"not {cfg.num_layers}")
 
     slo = SloTracker()
     router = Router(slo, max_queue_per_replica=8)
@@ -293,8 +494,8 @@ def phase_serve_bf16(rng):
                       device=DEVICE, seed=SEED)
     router.add_replica("replica-0", eng)
     finite = torch.ones((), dtype=torch.bool, device=DEVICE)
-    seen = []
-    capture_logits(eng, seen)
+    seen, widths = [], []
+    capture_logits(eng, seen, widths)
     lens = rng.randint(64, 513, size=8)
     norms_before = launch_counts()["rmsnorm"]
     torch.cuda.synchronize()
@@ -311,11 +512,12 @@ def phase_serve_bf16(rng):
     norms = launch_counts()["rmsnorm"] - norms_before
     check(len(done) == 8 and all(r.done for r in done), "not every request completed")
     check(bool(finite), "non-finite logits while serving")
-    check(norms == (2 * cfg.num_layers + 1) * eng.steps,
-          f"rmsnorm launches {norms} != {2 * cfg.num_layers + 1} x {eng.steps} ticks")
+    want = sum(norms_per_tick(cfg, C) for C in widths)
+    check(len(widths) == eng.steps and norms == want,
+          f"rmsnorm launches {norms} != {want} over {eng.steps} ticks")
     gen = sum(len(r.generated) for r in done)
     snap = slo.arm_snapshot("baseline")
-    stats = {"requests": 8, "prompt_lens": [int(n) for n in lens],
+    stats = {"arch": arch, "requests": 8, "prompt_lens": [int(n) for n in lens],
              "new_tokens": 32, "slots": 4, "prefill_chunk": 16,
              "generated_tokens": gen, "ticks": eng.steps, "wall_s": wall,
              "tokens_per_s": gen / wall, "ms_per_tick": 1e3 * wall / eng.steps,
@@ -330,7 +532,7 @@ def phase_profile(cfg, params, rng):
     """Where a serving tick's time goes, with 4 slots all prefilling
     16-token chunks and then all decoding one token: wall time per tick
     (unprofiled), device time per tick, the device's idle share and the
-    top device activities (torch.profiler)."""
+    top device activities (torch.profiler), for ``cfg``'s engine."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve.engine import ServeEngine
@@ -365,25 +567,33 @@ def phase_profile(cfg, params, rng):
                 "wall_ms_per_tick": wall, "device_ms_per_tick": busy,
                 "device_idle_share": None if busy is None else 1 - busy / wall,
                 "device_ops_per_tick": sum(c for _, c, _ in evs) / n,
-                # 2L+1 per tick when the profiler kept every record
+                # norms_per_tick when the profiler kept every record
+                "rmsnorm_launches_per_tick": norms_per_tick(
+                    cfg, 16 if regime == "prefill_chunk16" else 1),
                 "rmsnorm_records_per_tick": sum(
                     c for k, c, _ in evs if "_rmsnorm_kernel" in k) / n,
                 "top_device_ms_per_tick": [[k[:70], c / n, us / n / 1e3]
                                            for k, c, us in top]}
     check(all(r is not None and r.t_first_token is not None for r in eng.active),
           "profile engine lost a request")
-    log(f"[profile] {json.dumps(out)}")
+    log(f"[profile {cfg.name}] {json.dumps(out)}")
 
 
-def phase_kernels_line(cfg, launches, gen):
-    """Each kernel at the main path's bf16 shapes: kernel, plain version,
-    library call, and the bound."""
+def phase_kernel_times(gen):
+    """Each kernel at its path's bf16 shapes: kernel, plain version,
+    library call, and the bound. Taken before the main paths run: after
+    the profile of a mamba2 serving tick (~240 k device records) the
+    profiler recorded no kernel at all."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.configs.registry import get_config
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.ssd_scan.ops import ssd_chunk
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref
+    cfg, ssm_cfg = get_config(ARCH), get_config(SSM_ARCH)
 
     out = []
     # RMSNorm at a serving tick: 4 slots x a 16-token chunk, d_model 2560
@@ -398,7 +608,6 @@ def phase_kernels_line(cfg, launches, gen):
         "name": "rmsnorm", "route": "triton",
         "source": "src/repro_torch/kernels/rmsnorm/rmsnorm.py",
         "replaces": "src/repro/kernels/rmsnorm/rmsnorm.py:24",
-        "launches": launches["rmsnorm"],
         "max_abs_err": max_abs(rmsnorm(x, s, cfg.norm_eps),
                                rmsnorm_ref(x.float(), s, cfg.norm_eps)),
         "ms": time_ms(lambda: rmsnorm(x, s, cfg.norm_eps)),
@@ -428,7 +637,6 @@ def phase_kernels_line(cfg, launches, gen):
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:86",
-        "launches": launches["flash_attention"],
         "max_abs_err": max_abs(flash_attention(q, k, v, True, W),
                                attention_ref(q, k, v, causal=True, window=W)),
         "ms": time_ms(lambda: flash_attention(q, k, v, True, W), reps=9, inner=3),
@@ -441,7 +649,43 @@ def phase_kernels_line(cfg, launches, gen):
         else "bytes",
         "library_ms": lib, "shape": [B, S, H, K, d], "dtype": "bfloat16",
         "window": W})
+
+    # the SSD chunk at mamba2's 2048-token prefill: x bf16, the rest f32,
+    # the decays of mamba2's init. Least work: C.B^T once per chunk and,
+    # per (chunk, head), (C.B^T o L).xdt on the causal triangle (j <= i)
+    # and the (N, P) state; f32 outside the tensor cores (the kernel's
+    # contract is f32; TF32 would change its precision).
+    Q, N = ssm_cfg.ssm_chunk, ssm_cfg.ssm_state
+    H, P = ssm_cfg.ssm_num_heads, ssm_cfg.ssm_head_dim
+    b, nc = 1, 2048 // Q
+    ins = ssd_inputs(gen, b, nc, Q, N, H, P, torch.bfloat16, model_like=True)
+    ab, rel = ssd_errs(ssd_chunk(*ins), ssd_chunk_ref(*ins))
+    tri = Q * (Q + 1) // 2
+    flops = 2 * b * nc * (tri * N + H * (tri * P + Q * N * P))
+    nbytes = (sum(t.numel() * t.element_size() for t in ins)
+              + 4 * b * nc * H * (Q * P + N * P + 1))         # y_diag, states, decays
+    t_ops, t_bytes = flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    out.append({
+        "name": "ssd_chunk", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_chunk.cu",
+        "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:70",
+        "max_abs_err": ab, "max_rel_err": rel,
+        "ms": time_ms(lambda: ssd_chunk(*ins), reps=9, inner=5),
+        "plain_ms": time_ms(lambda: ssd_chunk_ref(*ins), reps=9, inner=3),
+        "device_ms": kernel_device_ms(lambda: ssd_chunk(*ins), "ssd_chunk_kernel", n=10),
+        "bound_ms": 1e3 * max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops > t_bytes else "bytes",
+        "library_ms": None, "shape": [b, nc, Q, N, H, P],
+        "dtype": "x bfloat16, C/B/dt/da float32", "flops": flops, "bytes": nbytes})
     return out
+
+
+def kernels_line(times, paths):
+    """The kernel entries with their launches: ``paths`` holds each main
+    path's launch counts, and a kernel's ``launches`` is their sum."""
+    return [{**e, "launches": sum(c[e["name"]] for c in paths.values()),
+             "launches_by_path": {path: c[e["name"]] for path, c in paths.items()}}
+            for e in times]
 
 
 def main() -> int:
@@ -466,19 +710,34 @@ def main() -> int:
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     phase_rmsnorm(gen)
     phase_flash(gen)
+    phase_ssd(gen)
+    times = phase_kernel_times(gen)
 
     rng = np.random.RandomState(SEED)
-    reset_launch_counts()                      # the main path: phases 5-6
+    paths = {}
+    reset_launch_counts()                      # the dense path: phases 5-6
     phase_model_f32(rng)
-    cfg, params = phase_serve_bf16(rng)
-    launches = launch_counts()
-    log(f"[main path] kernel launches in phases 5-6: {launches}")
-    for kname, n in launches.items():
-        check(n > 0, f"kernel {kname} was not launched on the main path")
+    cfg, params = phase_serve_bf16(rng, ARCH)
+    paths["dense"] = launch_counts()
+    log(f"[dense path] kernel launches in phases 5-6: {paths['dense']}")
+    for kname in ("rmsnorm", "flash_attention"):
+        check(paths["dense"][kname] > 0, f"kernel {kname} was not launched on the dense path")
     phase_profile(cfg, params, rng)
     del params
+    torch.cuda.empty_cache()
 
-    kernels = phase_kernels_line(cfg, launches, gen)
+    reset_launch_counts()                      # the ssm/hybrid path: phases 8-9
+    phase_ssm_f32(rng)
+    ssm_cfg, params = phase_serve_bf16(rng, SSM_ARCH)
+    paths["ssm"] = launch_counts()
+    log(f"[ssm path] kernel launches in phases 8-9: {paths['ssm']}")
+    for kname in ("rmsnorm", "flash_attention", "ssd_chunk"):
+        check(paths["ssm"][kname] > 0, f"kernel {kname} was not launched on the ssm path")
+    phase_profile(ssm_cfg, params, rng)
+    del params
+    torch.cuda.empty_cache()
+
+    kernels = kernels_line(times, paths)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,22 @@
+"""mamba2-780m [ssm]: 48L d_model=1536 (attn-free) vocab=50280,
+ssm_state=128. SSD (state-space duality). [arXiv:2405.21060; unverified]
+"""
+
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mamba2-780m",
+    family="ssm",
+    num_layers=48,
+    d_model=1536,
+    num_heads=0,
+    num_kv_heads=0,
+    d_ff=0,
+    vocab_size=50280,
+    ssm_state=128,
+    ssm_expand=2,
+    ssm_head_dim=64,
+    ssm_chunk=256,
+    conv_kernel=4,
+    tie_embeddings=True,
+)

@@ -1,7 +1,7 @@
 """Architecture registry: --arch <id> -> ModelConfig (+ reduced smoke configs).
 
-The port's registry holds the dense family, which is what its first
-slice serves. The other architectures of the JAX package are known by
+The port's registry holds the families its slices so far serve: dense,
+ssm and hybrid. The other architectures of the JAX package are known by
 name and raise ``NotImplementedError`` naming the ``ROADMAP.md`` slice
 that ports them.
 """
@@ -12,7 +12,8 @@ import dataclasses
 from typing import Dict
 
 from ..models.config import ModelConfig
-from . import h2o_danube_1_8b, phi3_medium_14b, qwen1_5_110b, yi_34b
+from . import (h2o_danube_1_8b, hymba_1_5b, mamba2_780m, phi3_medium_14b,
+               qwen1_5_110b, yi_34b)
 
 __all__ = ["ARCHS", "LATER_SLICES", "get_config", "smoke_config"]
 
@@ -21,12 +22,12 @@ ARCHS: Dict[str, ModelConfig] = {
     "phi3-medium-14b": phi3_medium_14b.CONFIG,
     "h2o-danube-1.8b": h2o_danube_1_8b.CONFIG,
     "qwen1.5-110b": qwen1_5_110b.CONFIG,
+    "mamba2-780m": mamba2_780m.CONFIG,
+    "hymba-1.5b": hymba_1_5b.CONFIG,
 }
 
 # Architectures of the JAX package that later slices of the port add.
 LATER_SLICES: Dict[str, str] = {
-    "mamba2-780m": "slice 2 (SSM and hybrid)",
-    "hymba-1.5b": "slice 2 (SSM and hybrid)",
     "arctic-480b": "slice 3 (MoE)",
     "grok-1-314b": "slice 3 (MoE)",
     "internvl2-1b": "slice 4 (vision and audio frontends)",
@@ -48,7 +49,7 @@ def smoke_config(name: str) -> ModelConfig:
     """Reduced same-family config: small layers/width/vocab.
 
     The same reduction as the JAX package's ``smoke_config`` for the
-    dense family, so both sides build the same small model.
+    families the port serves, so both sides build the same small model.
     """
     cfg = get_config(name)
     kw = dict(
@@ -57,10 +58,13 @@ def smoke_config(name: str) -> ModelConfig:
         vocab_size=128,
         rope_theta=10_000.0,
     )
-    heads = 4
-    kv = max(1, min(cfg.num_kv_heads, 2))
-    kw.update(num_heads=heads, num_kv_heads=kv, head_dim=16,
-              d_ff=0 if cfg.d_ff == 0 else 128)
+    if cfg.family != "ssm":
+        heads = 4
+        kv = max(1, min(cfg.num_kv_heads, 2))
+        kw.update(num_heads=heads, num_kv_heads=kv, head_dim=16,
+                  d_ff=0 if cfg.d_ff == 0 else 128)
+    if cfg.ssm_state > 0:
+        kw.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=16, ssm_expand=2)
     if cfg.sliding_window > 0:
         kw.update(sliding_window=16)
     return dataclasses.replace(cfg, **kw)

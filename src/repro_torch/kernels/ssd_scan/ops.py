@@ -1,0 +1,36 @@
+"""Dispatching SSD intra-chunk wrapper with a launch counter.
+
+CPU tensors take the plain version (:func:`.ref.ssd_chunk_ref`); CUDA
+tensors launch the CUDA kernel, and anything else raises. There is no
+fallback from the kernel to the plain version, and no backward: neither
+the JAX package nor the port has a backward kernel for this block.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .ref import ssd_chunk_ref
+from .ssd_scan import ssd_chunk_fwd
+
+__all__ = ["ssd_chunk", "launches"]
+
+# Kernel launches through this wrapper (not plain-version calls).
+launches = 0
+
+
+def ssd_chunk(C: torch.Tensor, B: torch.Tensor, x: torch.Tensor,
+              dt: torch.Tensor, da: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """C, B: (b,nc,Q,N); x: (b,nc,Q,H,P); dt, da: (b,nc,Q,H) ->
+    y_diag (b,nc,Q,H,P), states (b,nc,H,N,P), decays (b,nc,H), f32."""
+    global launches
+    if C.device.type == "cpu":
+        return ssd_chunk_ref(C, B, x, dt, da)
+    if C.device.type != "cuda":
+        raise ValueError(f"ssd_chunk: no kernel for device {C.device}")
+    out = ssd_chunk_fwd(C, B, x, dt, da)
+    launches += 1
+    return out

@@ -1,9 +1,11 @@
 """Model layers, PyTorch. One param-builder + one apply per layer kind.
 
-The dense subset of the JAX package's ``models/layers.py``: RMSNorm,
-RoPE (half-split layout), GQA attention with its dense, blockwise and
-kernel paths, the dense and paged decode steps, and the SwiGLU / GeGLU /
-GELU FFN. Numerics follow the reference point for point: f32 softmax,
+The dense, ssm and hybrid subset of the JAX package's
+``models/layers.py``: RMSNorm, RoPE (half-split layout), GQA attention
+with its dense, blockwise and kernel paths, the dense and paged decode
+steps, the SwiGLU / GeGLU / GELU FFN, and the Mamba-2 SSD block (chunked
+prefill, one-token and chunked decode). Numerics follow the reference
+point for point: f32 softmax,
 the probabilities cast to the compute dtype before the PV product, and
 ``-1e30`` (not ``-inf``) for masked scores, so a fully masked row gets a
 uniform softmax rather than NaN.
@@ -11,9 +13,9 @@ uniform softmax rather than NaN.
 The sharding constraints of the JAX version only place tensors on a
 mesh; on one device they have no counterpart and are dropped.
 
-RMSNorm and the flash attention path go through the hand-written
-kernels' wrappers, which launch the kernel for CUDA tensors and take the
-plain version for CPU tensors.
+RMSNorm, the flash attention path and the SSD intra-chunk block go
+through the hand-written kernels' wrappers, which launch the kernel for
+CUDA tensors and take the plain version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -26,8 +28,9 @@ import torch.nn.functional as F
 
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.rmsnorm.ops import rmsnorm as rmsnorm_op
+from ..kernels.ssd_scan.ops import ssd_chunk
 from .config import ModelConfig
-from .modules import Builder, he_normal, ones_init, zeros_init
+from .modules import Builder, he_normal, normal_init, ones_init, zeros_init
 
 BLOCKWISE_THRESHOLD = 8192
 Q_BLOCK = 1024
@@ -380,3 +383,192 @@ def mlp_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     else:
         h = F.gelu(up, approximate="tanh")
     return torch.einsum("bsf,fd->bsd", h, p["w_down"].to(cdt))
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (SSD, chunked matmul form)
+# ---------------------------------------------------------------------------
+
+
+def _a_log_init(gen, shape, dtype, device, fan_in=None):
+    """log(linspace(1, 16, H)): the per-head decay rates of Mamba-2."""
+    return torch.log(torch.linspace(1.0, 16.0, shape[0], device=device)).to(dtype)
+
+
+def build_ssd(b: Builder, cfg: ModelConfig) -> Params:
+    D = cfg.d_model
+    di = cfg.ssm_d_inner
+    N = cfg.ssm_state
+    H = cfg.ssm_num_heads
+    convC = di + 2 * N
+    f32 = torch.float32
+    with b.scope("ssd"):
+        return {
+            "w_in_x": b.param("w_in_x", (D, di), ("embed", "ssm_inner_tp"),
+                              he_normal, fan_in=D),
+            "w_in_z": b.param("w_in_z", (D, di), ("embed", "ssm_inner_tp"),
+                              he_normal, fan_in=D),
+            "w_in_B": b.param("w_in_B", (D, N), ("embed", "ssm_state"),
+                              he_normal, fan_in=D),
+            "w_in_C": b.param("w_in_C", (D, N), ("embed", "ssm_state"),
+                              he_normal, fan_in=D),
+            "w_in_dt": b.param("w_in_dt", (D, H), ("embed", "ssm_heads"),
+                               he_normal, fan_in=D),
+            "dt_bias": b.param("dt_bias", (H,), ("ssm_heads",), zeros_init,
+                               dtype=f32),
+            "a_log": b.param("a_log", (H,), ("ssm_heads",), _a_log_init,
+                             dtype=f32),
+            "d_skip": b.param("d_skip", (H,), ("ssm_heads",), ones_init,
+                              dtype=f32),
+            "conv_w": b.param("conv_w", (cfg.conv_kernel, convC),
+                              ("conv_k", "ssm_inner_tp"), normal_init(0.1)),
+            "conv_b": b.param("conv_b", (convC,), ("ssm_inner_tp",), zeros_init),
+            "w_out": b.param("w_out", (di, D), ("ssm_inner_tp", "embed"),
+                             he_normal, fan_in=di),
+            "norm": build_rmsnorm(b, "gated_norm", di),
+        }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b_: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv. x: (B,S,C), w: (k,C). Sums in f32, result
+    in x's dtype."""
+    k = w.shape[0]
+    S = x.shape[1]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(k):
+        out = out + xp[:, i:i + S].float() * w[i].float()
+    return (out + b_.float()).to(x.dtype)
+
+
+def _ssd_in(cfg: ModelConfig, p: Params, x: torch.Tensor):
+    """The five input projections in the compute dtype: x, z, B, C, dt."""
+    cdt = cfg.compute_torch_dtype()
+    return tuple(x @ p[name].to(cdt)
+                 for name in ("w_in_x", "w_in_z", "w_in_B", "w_in_C", "w_in_dt"))
+
+
+def _gated_out(cfg: ModelConfig, p: Params, y: torch.Tensor, z: torch.Tensor
+               ) -> torch.Tensor:
+    """rmsnorm(y * silu(z)) @ w_out, in the compute dtype."""
+    cdt = cfg.compute_torch_dtype()
+    y = rmsnorm(p["norm"], y.to(cdt) * F.silu(z), cfg.norm_eps)
+    return y @ p["w_out"].to(cdt)
+
+
+def ssd_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
+              return_state: bool = False):
+    """Chunked SSD. x: (B,S,D) -> (B,S,D) [, final cache state].
+
+    The intra-chunk block (JAX ``layers.py:655-663``, written inline
+    there) is one call of the SSD kernel's wrapper; the inter-chunk
+    recurrence over the chunks' (B,H,N,P) states stays a short loop."""
+    B, S, _ = x.shape
+    di, N, H, P = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_num_heads, cfg.ssm_head_dim
+    Q = min(cfg.ssm_chunk, S)
+    pad = (-S) % Q
+    nc = (S + pad) // Q
+
+    xs, z, Bm, Cm, dt = _ssd_in(cfg, p, x)
+    conv_in = torch.cat([xs, Bm, Cm], dim=-1)
+    conv_out = F.silu(_causal_conv(conv_in, p["conv_w"], p["conv_b"]))
+    xs, Bm, Cm = conv_out[..., :di], conv_out[..., di:di + N], conv_out[..., di + N:]
+
+    dt = F.softplus(dt.float() + p["dt_bias"])                          # (B,S,H)
+    A = -torch.exp(p["a_log"])                                           # (H,)
+    dA = dt * A                                                          # log-decay
+
+    if pad:
+        xs, Bm, Cm, dt, dA = (F.pad(t, (0, 0, 0, pad)) for t in (xs, Bm, Cm, dt, dA))
+
+    xh = xs.reshape(B, nc, Q, H, P)                  # a strided view when unpadded
+    Bc = Bm.reshape(B, nc, Q, N).float()
+    Cc = Cm.reshape(B, nc, Q, N).float()
+    dtc = dt.reshape(B, nc, Q, H)
+    dAc = dA.reshape(B, nc, Q, H)
+
+    y_diag, chunk_states, decays = ssd_chunk(Cc, Bc, xh, dtc, dAc)
+    cum = torch.cumsum(dAc, dim=2)                                       # (B,nc,Q,H)
+
+    state = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+    prev = []
+    for c in range(nc):
+        prev.append(state)
+        state = state * decays[:, c, :, None, None] + chunk_states[:, c]
+    prev_states = torch.stack(prev, dim=1)                               # (B,nc,H,N,P)
+
+    y_off = torch.einsum("bcqn,bchnp,bcqh->bcqhp", Cc, prev_states, torch.exp(cum))
+    y = (y_diag + y_off).reshape(B, nc * Q, H, P)[:, :S]
+    y = y + xs.reshape(B, nc * Q, H, P)[:, :S].float() * p["d_skip"][:, None]
+    out = _gated_out(cfg, p, y.reshape(B, S, di), z)
+    if return_state:
+        k = cfg.conv_kernel
+        conv_tail = F.pad(conv_in, (0, 0, k - 1, 0))[:, S:S + k - 1]
+        return out, {"state": state, "conv": conv_tail}
+    return out
+
+
+def init_ssd_cache(cfg: ModelConfig, batch: int, device: torch.device
+                   ) -> Dict[str, torch.Tensor]:
+    H, N, P = cfg.ssm_num_heads, cfg.ssm_state, cfg.ssm_head_dim
+    convC = cfg.ssm_d_inner + 2 * cfg.ssm_state
+    return {
+        "state": torch.zeros((batch, H, N, P), dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.conv_kernel - 1, convC),
+                            dtype=cfg.compute_torch_dtype(), device=device),
+    }
+
+
+def ssd_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
+               cache: Dict[str, torch.Tensor]
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token SSD step. x: (B,1,D). Returns the output and a new
+    state and conv window (the cache passed in is not written)."""
+    B = x.shape[0]
+    di, N, H, P = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_num_heads, cfg.ssm_head_dim
+    xs, z, Bm, Cm, dt = _ssd_in(cfg, p, x[:, 0])
+
+    conv_in = torch.cat([xs, Bm, Cm], dim=-1)                          # (B,convC)
+    window = torch.cat([cache["conv"], conv_in[:, None]], dim=1)       # (B,k,convC)
+    conv_out = (torch.einsum("bkc,kc->bc", window.float(), p["conv_w"].float())
+                + p["conv_b"].float())
+    conv_out = F.silu(conv_out)                                        # f32, as JAX
+    xs = conv_out[:, :di].reshape(B, H, P)
+    Bm = conv_out[:, di:di + N]
+    Cm = conv_out[:, di + N:]
+
+    dt = F.softplus(dt.float() + p["dt_bias"])                        # (B,H)
+    A = -torch.exp(p["a_log"])
+    dA = torch.exp(dt * A)                                             # (B,H)
+    xdt = xs * dt[..., None]                                           # (B,H,P)
+    state = (cache["state"] * dA[..., None, None]
+             + torch.einsum("bn,bhp->bhnp", Bm, xdt))
+    y = torch.einsum("bn,bhnp->bhp", Cm, state) + xs * p["d_skip"][:, None]
+    out = _gated_out(cfg, p, y.reshape(B, di), z)[:, None]
+    return out, {"state": state, "conv": window[:, 1:].to(cache["conv"].dtype)}
+
+
+def ssd_decode_chunk(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                     cache: Dict[str, torch.Tensor], adv: torch.Tensor
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Sequential SSD decode over a chunk. x: (B,C,D); adv: (B,).
+
+    State/conv updates are gated per token to ``j < adv`` so padded rows
+    of a mixed prefill/decode chunk never advance a slot's recurrence.
+    Returns the outputs and the new state (the cache passed in is not
+    written)."""
+    B, C, _ = x.shape
+
+    def gate(keep: torch.Tensor, new: Dict[str, torch.Tensor],
+             old: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return {key: torch.where(keep.reshape((B,) + (1,) * (new[key].dim() - 1)),
+                                 new[key], old[key])
+                for key in new}
+
+    st = cache
+    ys = []
+    for j in range(C):
+        yj, ns = ssd_decode(cfg, p, x[:, j:j + 1], st)
+        st = gate(adv > j, ns, st)
+        ys.append(yj)
+    return torch.cat(ys, dim=1), st

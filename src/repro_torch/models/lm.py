@@ -1,9 +1,11 @@
 """Full language models, PyTorch: params, forward, loss, prefill, decode.
 
-The dense subset of the JAX package's ``models/lm.py``. The per-layer
-body is
+The dense, ssm and hybrid subset of the JAX package's ``models/lm.py``.
+The per-layer body is
 
   dense   : x += attn(n1(x));  x += mlp(n2(x))
+  ssm     : x += ssd(n1(x))                       (attention-free)
+  hybrid  : x += (attn(n1(x)) + ssd(n1(x)))/2;  x += mlp(n2(x))  (hymba)
 
 Parameters keep the JAX tree: layer parameters are stacked with a
 leading ``L`` dimension under ``layers``, and where JAX scans over that
@@ -11,7 +13,7 @@ dimension the port loops over indexed slices. Caches are updated in
 place where the JAX serving path donates them.
 
 ``remat`` is accepted for signature parity and ignored until training
-is ported. Other families (moe, ssm, hybrid, vlm, audio) raise
+is ported. Other families (moe, vlm, audio) raise
 ``NotImplementedError``: later slices of ``ROADMAP.md`` port them.
 """
 
@@ -25,7 +27,9 @@ from ..device import resolve_device
 from .config import ModelConfig
 from .layers import (_qkv, attention_apply, attention_decode,
                      attention_decode_paged, build_attention, build_mlp,
-                     build_rmsnorm, init_kv_cache, mlp_apply, rmsnorm)
+                     build_rmsnorm, build_ssd, init_kv_cache, init_ssd_cache,
+                     mlp_apply, rmsnorm, ssd_apply, ssd_decode,
+                     ssd_decode_chunk)
 from .modules import Builder, Mode, normal_init
 
 Params = Dict[str, Any]
@@ -33,11 +37,16 @@ Device = Union[str, torch.device, None]
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if (cfg.family != "dense" or cfg.hybrid or cfg.num_experts > 0
-            or cfg.frontend != "none"):
+    if (cfg.family not in ("dense", "ssm", "hybrid")
+            or cfg.hybrid != (cfg.family == "hybrid")
+            or cfg.num_experts > 0 or cfg.frontend != "none"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            f"(dense only; see the slices in ROADMAP.md)")
+            f"(dense, ssm and hybrid only; see the slices in ROADMAP.md)")
+
+
+def _has_ssd(cfg: ModelConfig) -> bool:
+    return cfg.family in ("ssm", "hybrid")
 
 
 def _layer(tree: Any, li: int) -> Any:
@@ -54,10 +63,16 @@ def _layer(tree: Any, li: int) -> Any:
 
 def build_layer(b: Builder, cfg: ModelConfig) -> Params:
     _check_family(cfg)
-    return {"norm1": build_rmsnorm(b, "norm1", cfg.d_model),
-            "attn": build_attention(b, cfg),
-            "norm2": build_rmsnorm(b, "norm2", cfg.d_model),
-            "mlp": build_mlp(b, cfg)}
+    p: Params = {"norm1": build_rmsnorm(b, "norm1", cfg.d_model)}
+    if cfg.family == "ssm":
+        p["ssd"] = build_ssd(b, cfg)
+        return p
+    p["attn"] = build_attention(b, cfg)
+    if cfg.hybrid:
+        p["ssd"] = build_ssd(b, cfg)
+    p["norm2"] = build_rmsnorm(b, "norm2", cfg.d_model)
+    p["mlp"] = build_mlp(b, cfg)
+    return p
 
 
 def build_params(b: Builder, cfg: ModelConfig) -> Params:
@@ -91,13 +106,33 @@ def abstract_params(cfg: ModelConfig) -> Params:
 # ---------------------------------------------------------------------------
 
 
+def _layer_body(cfg: ModelConfig, lp: Params, x: torch.Tensor,
+                positions: torch.Tensor, attention_impl: str,
+                return_state: bool
+                ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """One layer; with ``return_state`` also the SSD cache state that
+    ``ssd_apply`` leaves after the sequence (None without an SSD)."""
+    h = rmsnorm(lp["norm1"], x, cfg.norm_eps)
+    st = None
+    if _has_ssd(cfg):
+        if return_state:
+            y_ssd, st = ssd_apply(cfg, lp["ssd"], h, return_state=True)
+        else:
+            y_ssd = ssd_apply(cfg, lp["ssd"], h)
+    if cfg.family == "ssm":
+        return x + y_ssd, st
+    att = attention_apply(cfg, lp["attn"], h, positions, attention_impl)
+    if cfg.hybrid:
+        att = 0.5 * (att + y_ssd)
+    x = x + att
+    h2 = rmsnorm(lp["norm2"], x, cfg.norm_eps)
+    return x + mlp_apply(cfg, lp["mlp"], h2), st
+
+
 def layer_apply(cfg: ModelConfig, lp: Params, x: torch.Tensor,
                 positions: torch.Tensor, attention_impl: str = "auto"
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    h = rmsnorm(lp["norm1"], x, cfg.norm_eps)
-    x = x + attention_apply(cfg, lp["attn"], h, positions, attention_impl)
-    h2 = rmsnorm(lp["norm2"], x, cfg.norm_eps)
-    return x + mlp_apply(cfg, lp["mlp"], h2), {}
+    return _layer_body(cfg, lp, x, positions, attention_impl, False)[0], {}
 
 
 # ---------------------------------------------------------------------------
@@ -155,35 +190,65 @@ def cross_entropy(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _stacked_ssd_cache(cfg: ModelConfig, slots: int, dev: torch.device
+                       ) -> Dict[str, torch.Tensor]:
+    """Per-layer SSD state (L,slots,H,N,P) f32 and conv window
+    (L,slots,k-1,d_inner+2N): real zero tensors, written in place
+    (JAX's ``broadcast_to`` views would alias every layer)."""
+    sc = init_ssd_cache(cfg, slots, dev)
+    return {name: torch.zeros((cfg.num_layers,) + a.shape, dtype=a.dtype, device=dev)
+            for name, a in sc.items()}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: Device = None) -> Dict[str, Any]:
     """Dense per-slot decode cache; ``pos`` is a per-slot clock (B,)."""
     _check_family(cfg)
     dev = resolve_device(device)
-    kv = init_kv_cache(cfg, batch, max_len, dev)
+    cache: Dict[str, Any] = {"pos": torch.zeros((batch,), dtype=torch.int32,
+                                                device=dev)}
     L = cfg.num_layers
-    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
-            "kv": {name: torch.zeros((L,) + a.shape, dtype=a.dtype, device=dev)
-                   for name, a in kv.items()}}
+    if cfg.family != "ssm":
+        kv = init_kv_cache(cfg, batch, max_len, dev)
+        cache["kv"] = {name: torch.zeros((L,) + a.shape, dtype=a.dtype, device=dev)
+                       for name, a in kv.items()}
+    if _has_ssd(cfg):
+        cache["ssd"] = _stacked_ssd_cache(cfg, batch, dev)
+    return cache
 
 
 def init_paged_cache(cfg: ModelConfig, slots: int, num_blocks: int,
                      block_size: int, device: Device = None) -> Dict[str, Any]:
-    """Paged decode cache: one physical KV block pool shared by all slots.
+    """Paged decode cache: a physical KV block pool + per-slot SSD state.
 
-    kv k/v are (L, num_blocks, block_size, K, hd); block 0 is the
-    reserved always-zero sentinel that empty block-table entries point
-    at. Position clocks and block tables live host-side in
+    kv k/v are (L, num_blocks, block_size, K, hd) — one pool shared by
+    all slots; block 0 is the reserved always-zero sentinel that empty
+    block-table entries point at. The ssm and hybrid families add
+    ``ssd`` (state and conv window per slot, see
+    :func:`_stacked_ssd_cache`); the ssm family has no pool. Position
+    clocks and block tables live host-side in
     :class:`repro_torch.serve.kvcache.KVCacheManager` and are passed to
     :func:`decode_chunk` per tick.
     """
     _check_family(cfg)
     dev = resolve_device(device)
-    shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
-    dt = cfg.compute_torch_dtype()
-    return {"kv": {"k": torch.zeros(shape, dtype=dt, device=dev),
-                   "v": torch.zeros(shape, dtype=dt, device=dev)}}
+    cache: Dict[str, Any] = {}
+    if cfg.family != "ssm":
+        shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        dt = cfg.compute_torch_dtype()
+        cache["kv"] = {"k": torch.zeros(shape, dtype=dt, device=dev),
+                       "v": torch.zeros(shape, dtype=dt, device=dev)}
+    if _has_ssd(cfg):
+        cache["ssd"] = _stacked_ssd_cache(cfg, slots, dev)
+    return cache
+
+
+def _write_layer(tree: Dict[str, torch.Tensor], li: int,
+                 new: Dict[str, torch.Tensor]) -> None:
+    """Write one layer's new SSD state into the stacked cache, in place."""
+    for name, a in tree.items():
+        a[li].copy_(new[name])
 
 
 def decode_chunk(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -197,26 +262,39 @@ def decode_chunk(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     tokens: (B,C); block_table: (B,nb); pos: (B,) per-slot clocks; adv:
     (B,) real tokens this chunk (0 = idle slot). One call serves mixed
     phases. ``zero_blocks`` (fixed width, padded with NB) zero-epochs
-    recycled physical blocks; ``reset_slots`` resets recurrent state,
-    which the dense family does not have. The pool is updated in place
-    (the JAX engine donates it) and returned in the cache dict.
+    recycled physical blocks; ``reset_slots`` (B,) bool zeroes recycled
+    slots' SSD state and conv window (state is cumulative: masking
+    alone cannot protect it). The pool and the SSD state are updated in
+    place (the JAX engine donates them) and returned in the cache dict.
     Returns (logits (B,C,V), cache).
     """
-    kv = cache["kv"]
-    if zero_blocks is not None:
+    kv = cache.get("kv")
+    ssd = cache.get("ssd")
+    if zero_blocks is not None and kv is not None:
         NB = kv["k"].shape[1]
         # padding entries (NB) go to the sentinel block 0, which is zero
         zb = torch.where(zero_blocks < NB, zero_blocks,
                          torch.zeros_like(zero_blocks)).long()
         kv["k"][:, zb] = 0.0
         kv["v"][:, zb] = 0.0
+    if reset_slots is not None and ssd is not None:
+        for a in ssd.values():
+            a.masked_fill_(reset_slots.reshape((1, -1) + (1,) * (a.dim() - 2)), 0)
 
     x, _ = embed_tokens(cfg, params, {"tokens": tokens})
     for li in range(cfg.num_layers):
         lp = _layer(params["layers"], li)
         hn = rmsnorm(lp["norm1"], x, cfg.norm_eps)
+        if _has_ssd(cfg):
+            y_ssd, new_ssd = ssd_decode_chunk(cfg, lp["ssd"], hn, _layer(ssd, li), adv)
+            _write_layer(ssd, li, new_ssd)
+        if cfg.family == "ssm":
+            x = x + y_ssd
+            continue
         att, _ = attention_decode_paged(cfg, lp["attn"], hn, _layer(kv, li),
                                         block_table, pos, adv)
+        if cfg.hybrid:
+            att = 0.5 * (att + y_ssd)
         x = x + att
         h2 = rmsnorm(lp["norm2"], x, cfg.norm_eps)
         x = x + mlp_apply(cfg, lp["mlp"], h2)
@@ -227,14 +305,22 @@ def decode_chunk(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                 cache: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One AR step for the whole stack against the dense cache.
-    tokens: (B,1). The cache's K/V are written in place; ``pos``
-    advances in the returned dict."""
+    tokens: (B,1). The cache's K/V and SSD state are written in place;
+    ``pos`` advances in the returned dict."""
     x, _ = embed_tokens(cfg, params, {"tokens": tokens})
     pos = cache["pos"]
     for li in range(cfg.num_layers):
         lp = _layer(params["layers"], li)
         hn = rmsnorm(lp["norm1"], x, cfg.norm_eps)
+        if _has_ssd(cfg):
+            y_ssd, new_ssd = ssd_decode(cfg, lp["ssd"], hn, _layer(cache["ssd"], li))
+            _write_layer(cache["ssd"], li, new_ssd)
+        if cfg.family == "ssm":
+            x = x + y_ssd
+            continue
         att, _ = attention_decode(cfg, lp["attn"], hn, _layer(cache["kv"], li), pos)
+        if cfg.hybrid:
+            att = 0.5 * (att + y_ssd)
         x = x + att
         h2 = rmsnorm(lp["norm2"], x, cfg.norm_eps)
         x = x + mlp_apply(cfg, lp["mlp"], h2)
@@ -250,33 +336,45 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
 
     ``max_len`` sizes the KV cache (must exceed S by the planned
     generation length for full-attention archs; SWA archs allocate the
-    window regardless)."""
+    window regardless). The SSD state is primed from the layer's own
+    ``ssd_apply(return_state=True)``: JAX runs ``ssd_apply`` a second
+    time inside ``layer_apply`` for the layer's output, the port reuses
+    the one result (the same numbers, one SSD kernel launch per
+    layer)."""
     x, positions = embed_tokens(cfg, params, batch)
     B, S, _ = x.shape
     max_len = max_len or S
-    ks, vs = [], []
+    emitted: Dict[str, list] = {"k": [], "v": [], "state": [], "conv": []}
     for li in range(cfg.num_layers):
         lp = _layer(params["layers"], li)
-        hn = rmsnorm(lp["norm1"], x, cfg.norm_eps)
-        _, k_, v_ = _qkv(cfg, lp["attn"], hn, positions[None, :])
-        if cfg.sliding_window > 0 and S > cfg.sliding_window:
-            k_ = k_[:, -cfg.sliding_window:]
-            v_ = v_[:, -cfg.sliding_window:]
-        ks.append(k_)
-        vs.append(v_)
-        x, _ = layer_apply(cfg, lp, x, positions, attention_impl)
+        if cfg.family != "ssm":
+            hn = rmsnorm(lp["norm1"], x, cfg.norm_eps)
+            _, k_, v_ = _qkv(cfg, lp["attn"], hn, positions[None, :])
+            if cfg.sliding_window > 0 and S > cfg.sliding_window:
+                k_ = k_[:, -cfg.sliding_window:]
+                v_ = v_[:, -cfg.sliding_window:]
+            emitted["k"].append(k_)
+            emitted["v"].append(v_)
+        x, st = _layer_body(cfg, lp, x, positions, attention_impl, True)
+        if st is not None:
+            emitted["state"].append(st["state"])
+            emitted["conv"].append(st["conv"])
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = lm_head(cfg, params, x[:, -1:])
 
     cache = init_cache(cfg, B, max(max_len, 1), x.device)
-    Scache = cache["kv"]["k"].shape[2]
-    for name, emitted in (("k", ks), ("v", vs)):
-        e = torch.stack(emitted)[:, :, -Scache:]          # (L,B,n,K,hd)
-        n = e.shape[2]
-        if cfg.sliding_window > 0:
-            # ring-buffer alignment: position p lives at slot p % Scache;
-            # entries cover positions [S-n, S): roll index 0 -> slot (S-n) % Scache
-            e = torch.roll(e, (S - n) % Scache, dims=2)
-        cache["kv"][name][:, :, :n] = e.to(cache["kv"][name].dtype)
+    if "kv" in cache:
+        Scache = cache["kv"]["k"].shape[2]
+        for name in ("k", "v"):
+            e = torch.stack(emitted[name])[:, :, -Scache:]    # (L,B,n,K,hd)
+            n = e.shape[2]
+            if cfg.sliding_window > 0:
+                # ring-buffer alignment: position p lives at slot p % Scache;
+                # entries cover positions [S-n, S): roll index 0 -> slot (S-n) % Scache
+                e = torch.roll(e, (S - n) % Scache, dims=2)
+            cache["kv"][name][:, :, :n] = e.to(cache["kv"][name].dtype)
+    if "ssd" in cache:
+        for name, a in cache["ssd"].items():
+            a.copy_(torch.stack(emitted[name]))
     cache["pos"] = torch.full((B,), S, dtype=torch.int32, device=x.device)
     return logits, cache

@@ -99,13 +99,18 @@ class Builder:
         if fan_in is None:
             # the default fan-in reads the unstacked shape, as in JAX
             fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-        if self._stack is not None:
-            shape = (self._stack,) + shape
         if self.mode == Mode.SHAPE:
-            return torch.empty(shape, dtype=dtype, device="meta")
+            stacked = shape if self._stack is None else (self._stack,) + shape
+            return torch.empty(stacked, dtype=dtype, device="meta")
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.seed * 2**32 + _path_seed(f"{self.path}/{name}"))
-        return init(gen, shape, dtype, self.device, fan_in)
+        if self._stack is None:
+            return init(gen, shape, dtype, self.device, fan_in)
+        # As JAX's vmap over the layers: each layer's init sees the
+        # unstacked shape (a shape-dependent init such as the SSD's
+        # log(linspace(1, 16, H)) must give every layer the same row).
+        return torch.stack([init(gen, shape, dtype, self.device, fan_in)
+                            for _ in range(self._stack)])
 
 
 class _Scope:

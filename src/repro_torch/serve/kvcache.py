@@ -17,7 +17,10 @@ package's manager does:
   checks ``pos + chunk <= capacity`` before every feed.
 * **Zero-epoching.** Recycled physical blocks are queued and zeroed
   inside the next :func:`~repro_torch.models.lm.decode_chunk` call
-  (``zero_blocks``), so no request can observe a predecessor's K/V.
+  (``zero_blocks``), and recycled slots' SSD recurrence is reset the
+  same way (``reset_slots``), so no request can observe a predecessor's
+  K/V or SSM state. SSD state is cumulative, so for the ssm and hybrid
+  families the reset is load-bearing, not just hygiene.
 """
 
 from __future__ import annotations
@@ -133,9 +136,9 @@ class KVCacheManager:
         return out
 
     def take_reset_slots(self) -> Optional[np.ndarray]:
-        """(slots,) bool mask of slots whose recurrent state resets this
-        tick (no effect on the dense family, kept for the engine's
-        contract)."""
+        """(slots,) bool mask of slots whose SSD state and conv window
+        reset this tick (slots reserved since the last tick); None when
+        none. The dense family has no recurrent state to reset."""
         if not self._pending_reset.any():
             return None
         out = self._pending_reset.copy()

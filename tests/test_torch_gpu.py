@@ -6,7 +6,9 @@ a GPU machine that has only PyTorch:
 
   PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Tolerances are those of ``test_kernels.py``: 2e-5 in f32, 2e-2 in bf16.
+Tolerances are those of ``test_kernels.py``: 2e-5 in f32, 2e-2 in bf16,
+and 1e-4 for the SSD chunk; at mamba2-like decays the SSD chunk is held
+to a relative bound (see ``ssd_inputs``).
 """
 
 import pytest
@@ -18,6 +20,8 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.ssd_scan.ops import ssd_chunk
+from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref
 
 
 @pytest.fixture
@@ -83,3 +87,86 @@ def test_flash_gradient_through_the_kernel(cuda):
     q2 = q.clone().requires_grad_(True)
     attention_ref(q2, k, v).sum().backward()
     assert float((q1.grad - q2.grad).abs().max()) < 1e-4
+
+
+def ssd_inputs(dev, b, nc, Q, N, H, P, model_like=False, seed=0):
+    """``test_kernels.py``'s distribution (unit normals, dt = softplus(n),
+    da = -|n| * 0.1), or with ``model_like`` mamba2's init decays
+    da = dt * A, A = -linspace(1, 16, H): there cum reaches -1e3 at
+    Q = 256, where cum_i - cum_j carries ~1e-4 relative noise between two
+    summation orders of the same f32 sums."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    C = torch.randn(b, nc, Q, N, device=dev, generator=g)
+    B = torch.randn(b, nc, Q, N, device=dev, generator=g)
+    x = torch.randn(b, nc, Q, H, P, device=dev, generator=g)
+    dt = torch.nn.functional.softplus(torch.randn(b, nc, Q, H, device=dev, generator=g))
+    if model_like:
+        da = dt * -torch.linspace(1.0, 16.0, H, device=dev)
+    else:
+        da = -torch.randn(b, nc, Q, H, device=dev, generator=g).abs() * 0.1
+    return C, B, x, dt, da
+
+
+def ssd_err(out, ref, relative):
+    """Max abs error over the three outputs, or each one's over its own
+    largest magnitude (decays underflow to 0 at model-like decays)."""
+    errs = []
+    for o, r in zip(out, ref):
+        e = float((o - r).abs().max())
+        errs.append(e / max(float(r.abs().max()), 1e-30) if relative else e)
+    return max(errs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,nc,Q,N,H,P", [
+    (2, 3, 16, 8, 4, 16), (1, 2, 32, 16, 2, 8), (1, 1, 64, 32, 3, 16)])
+def test_ssd_kernel_matches_plain_at_the_jax_test_shapes(cuda, dtype, b, nc, Q, N, H, P):
+    C, B, x, dt, da = ssd_inputs(cuda, b, nc, Q, N, H, P)
+    x = x.to(dtype)
+    before = launch_counts()["ssd_chunk"]
+    out = ssd_chunk(C, B, x, dt, da)
+    torch.cuda.synchronize()
+    assert launch_counts()["ssd_chunk"] == before + 1
+    assert all(o.dtype == torch.float32 for o in out)
+    assert ssd_err(out, ssd_chunk_ref(C, B, x, dt, da), relative=False) < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Q,N,H,P", [(256, 128, 48, 64), (100, 128, 48, 64),
+                                     (256, 16, 50, 64)])
+def test_ssd_kernel_matches_plain_at_model_shapes(cuda, dtype, Q, N, H, P):
+    """mamba2-780m (N=128, H=48, P=64; Q=100 is a 100-token prompt) and
+    hymba-1.5b (N=16, H=50) with their init's decays."""
+    C, B, x, dt, da = ssd_inputs(cuda, 1, 2, Q, N, H, P, model_like=True)
+    x = x.to(dtype)
+    out = ssd_chunk(C, B, x, dt, da)
+    torch.cuda.synchronize()
+    assert ssd_err(out, ssd_chunk_ref(C, B, x, dt, da), relative=True) < 1e-3
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_reads_strided_views(cuda):
+    """x as the d_inner slice of the conv output (B, S, d_inner + 2N) and
+    C, B as its other two slices, reshaped into chunks, as ssd_apply
+    passes them in an f32 model."""
+    b, nc, Q, N, H, P = 1, 3, 64, 32, 4, 16
+    di = H * P
+    g = torch.Generator(device=cuda).manual_seed(3)
+    conv = torch.randn(b, nc * Q, di + 2 * N, device=cuda, generator=g)
+    x = conv[..., :di].reshape(b, nc, Q, H, P)
+    Bm = conv[..., di:di + N].reshape(b, nc, Q, N)
+    Cm = conv[..., di + N:].reshape(b, nc, Q, N)
+    assert not (x.is_contiguous() or Bm.is_contiguous())
+    _, _, _, dt, da = ssd_inputs(cuda, b, nc, Q, N, H, P)
+    out = ssd_chunk(Cm, Bm, x, dt, da)
+    ref = ssd_chunk_ref(Cm.contiguous(), Bm.contiguous(), x.contiguous(), dt, da)
+    assert ssd_err(out, ref, relative=False) < 1e-4
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_rejects_shapes_it_was_not_built_for(cuda):
+    C, B, x, dt, da = ssd_inputs(cuda, 1, 1, 16, 256, 2, 16)
+    with pytest.raises(ValueError, match="built for"):
+        ssd_chunk(C, B, x, dt, da)

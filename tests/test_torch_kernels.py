@@ -30,6 +30,7 @@ from repro_torch import convert
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
+from repro_torch.kernels.ssd_scan.ops import ssd_chunk
 
 SRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 DTYPES = ["float32", "bfloat16"]
@@ -111,7 +112,10 @@ def test_cpu_path_does_not_count_launches():
     rmsnorm(x, torch.ones(8))
     q = torch.randn(1, 8, 2, 16)
     flash_attention(q, q, q)
-    assert launch_counts() == {"flash_attention": 0, "rmsnorm": 0}
+    c = torch.randn(1, 1, 8, 4)
+    ssd_chunk(c, c, torch.randn(1, 1, 8, 2, 8), torch.ones(1, 1, 8, 2),
+              -torch.ones(1, 1, 8, 2))
+    assert launch_counts() == {"flash_attention": 0, "rmsnorm": 0, "ssd_chunk": 0}
 
 
 def test_wrappers_raise_on_devices_without_a_kernel():

@@ -1,10 +1,11 @@
-"""The port's dense models against the JAX package, on the CPU.
+"""The port's dense, ssm and hybrid models against the JAX package, on the CPU.
 
 First the JAX oracle the port is held against: JAX ``decode_chunk``
 over the paged pool must reproduce JAX ``forward``. Then the port's
 ``forward`` (dense and kernel paths), ``prefill`` and its cache,
-``decode_step`` and ``decode_chunk`` (logits and the K/V pool after the
-scatter) against JAX on the same converted parameters.
+``decode_step`` and ``decode_chunk`` (logits, the K/V pool after the
+scatter and the SSD state after each chunk) against JAX on the same
+converted parameters.
 
 Tolerances: decode vs forward 2e-3 relative, the bound of
 ``test_decode.py``; port vs JAX 1e-4 relative in f32, which leaves room
@@ -28,8 +29,8 @@ from repro_torch import convert
 from repro_torch.configs.registry import smoke_config
 from repro_torch.models import lm
 
-ARCHS = ["yi-34b", "h2o-danube-1.8b", "qwen1.5-110b"]
-ORACLE_ARCHS = ["yi-34b", "h2o-danube-1.8b"]
+ARCHS = ["yi-34b", "h2o-danube-1.8b", "qwen1.5-110b", "mamba2-780m", "hymba-1.5b"]
+ORACLE_ARCHS = ["yi-34b", "h2o-danube-1.8b", "mamba2-780m", "hymba-1.5b"]
 
 
 def f32(cfg):
@@ -48,8 +49,9 @@ _PARAMS = {}
 def world(arch):
     """(jax cfg, torch cfg, jax params, torch params) on shared weights.
 
-    Biases and norm scales are randomized (they init to 0 and 1), so the
-    qkv bias and the norm scale multiply are exercised."""
+    Biases, norm scales and the SSD skip are randomized (they init to 0
+    and 1), so the qkv, dt and conv biases, the norm scale multiply and
+    the D skip are exercised."""
     if arch not in _PARAMS:
         jcfg = f32(jax_smoke_config(arch))
         tcfg = f32(smoke_config(arch))
@@ -59,9 +61,9 @@ def world(arch):
         def perturb(node, name=""):
             if isinstance(node, dict):
                 return {k: perturb(v, k) for k, v in node.items()}
-            if name in ("bq", "bk", "bv"):
+            if name in ("bq", "bk", "bv", "dt_bias", "conv_b"):
                 return (rng.randn(*node.shape) * 0.1).astype(node.dtype)
-            if name == "scale":
+            if name in ("scale", "d_skip"):
                 return (1.0 + rng.randn(*node.shape) * 0.1).astype(node.dtype)
             return node
 
@@ -117,9 +119,12 @@ _JIT = {}
 
 def jax_chunk(cfg):
     if cfg not in _JIT:
-        _JIT[cfg] = jax.jit(lambda p, t, c, bt, pos, adv, zb: jlm.decode_chunk(
-            cfg, p, t, c, bt, pos, adv, zero_blocks=zb))
+        _JIT[cfg] = jax.jit(lambda p, t, c, bt, pos, adv, zb, rs: jlm.decode_chunk(
+            cfg, p, t, c, bt, pos, adv, zero_blocks=zb, reset_slots=rs))
     return _JIT[cfg]
+
+
+NO_RESET = np.zeros((B,), bool)
 
 
 # ---------------------------------------------------------------------------
@@ -140,7 +145,8 @@ def test_jax_decode_chunk_matches_forward(arch, mode):
     step = jax_chunk(jcfg)
     for C, adv, pos in plan(SCHEDULES[mode]):
         lg, cache = step(jp, jnp.asarray(feed(toks, C, adv, pos)), cache, bt,
-                         jnp.asarray(pos), jnp.asarray(adv), zb)
+                         jnp.asarray(pos), jnp.asarray(adv), zb,
+                         jnp.asarray(NO_RESET))
         lg = np.asarray(lg)
         for b in range(B):
             n = adv[b]
@@ -162,6 +168,8 @@ def test_config_matches_jax(arch):
 
 @pytest.mark.parametrize("arch", ARCHS + ["phi3-medium-14b"])
 def test_param_tree_shapes_match_jax(arch):
+    """Shapes and dtypes, full configs included: the SSD's dt_bias,
+    a_log and d_skip stay f32 beside bf16 weights."""
     jtree = jlm.abstract_params(jax_smoke_config(arch))
     ttree = lm.abstract_params(smoke_config(arch))
     jflat = {jax.tree_util.keystr(k): v for k, v in
@@ -280,9 +288,15 @@ def test_prefill_and_cache_match_jax(arch):
     got, tcache = lm.prefill(tcfg, tp, {"tokens": torch.from_numpy(toks)}, max_len=28)
     assert rel_err(got.numpy(), want) < 1e-4
     assert np.array_equal(tcache["pos"].numpy(), np.asarray(jcache["pos"]))
-    for name in ("k", "v"):
+    assert sorted(tcache) == sorted(jcache)
+    for name in ("k", "v") if "kv" in jcache else ():
         assert tcache["kv"][name].shape == jcache["kv"][name].shape
         assert rel_err(tcache["kv"][name].numpy(), jcache["kv"][name]) < 1e-5
+    for name in ("state", "conv") if "ssd" in jcache else ():
+        t = tcache["ssd"][name]
+        assert t.shape == jcache["ssd"][name].shape
+        assert str(t.dtype).split(".")[-1] == str(jcache["ssd"][name].dtype)
+        assert rel_err(t.numpy(), jcache["ssd"][name]) < 1e-4
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -296,43 +310,60 @@ def test_decode_step_matches_jax(arch):
         jl, jc = jstep(jp, jnp.asarray(toks[:, t:t + 1]), jc)
         tl, tc = lm.decode_step(tcfg, tp, torch.from_numpy(toks[:, t:t + 1]), tc)
         assert rel_err(tl.numpy(), jl) < 1e-4, t
-    assert rel_err(tc["kv"]["k"].numpy(), jc["kv"]["k"]) < 1e-5
+    assert np.array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
+    if "kv" in jc:
+        assert rel_err(tc["kv"]["k"].numpy(), jc["kv"]["k"]) < 1e-5
+    for name in ("state", "conv") if "ssd" in jc else ():
+        assert rel_err(tc["ssd"][name].numpy(), jc["ssd"][name]) < 1e-4
 
 
 @pytest.mark.parametrize("mode", ["chunk1", "mixed"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_chunk_matches_jax(arch, mode):
-    """Logits per tick and the whole K/V pool after each scatter: padded
-    rows (j >= adv) must not be written, the sentinel block 0 stays zero,
-    and zero_blocks (padded with NB) zeroes exactly its real entries."""
+    """Logits per tick, the whole K/V pool after each scatter and the SSD
+    state after each chunk: padded rows (j >= adv) must not be written
+    or advance a recurrence, the sentinel block 0 stays zero,
+    zero_blocks (padded with NB) zeroes exactly its real entries, and
+    reset_slots zeroes exactly its slots' SSD state."""
     jcfg, tcfg, jp, tp = world(arch)
     toks = tokens(jcfg, B, S_TOTAL, seed=4)
     NB = 2 + B * NB_SLOT                  # one spare block past the tables
     jcache = jlm.init_paged_cache(jcfg, B, NB, BS)
     tcache = lm.init_paged_cache(tcfg, B, NB, BS, "cpu")
-    junk = np.random.RandomState(5).randn(*jcache["kv"]["k"][:, NB - 1].shape
-                                          ).astype(np.float32)
-    jcache = {"kv": {n: a.at[:, NB - 1].set(junk) for n, a in jcache["kv"].items()}}
-    for a in tcache["kv"].values():
-        a[:, NB - 1] = torch.from_numpy(junk)
+    assert sorted(tcache) == sorted(jcache)
+    has_kv = "kv" in jcache
+    if has_kv:
+        junk = np.random.RandomState(5).randn(*jcache["kv"]["k"][:, NB - 1].shape
+                                              ).astype(np.float32)
+        jcache = {**jcache,
+                  "kv": {n: a.at[:, NB - 1].set(junk) for n, a in jcache["kv"].items()}}
+        for a in tcache["kv"].values():
+            a[:, NB - 1] = torch.from_numpy(junk)
     bt = block_table()
     step = jax_chunk(jcfg)
     for t, (C, adv, pos) in enumerate(plan(SCHEDULES[mode])):
         zb = np.full((B * NB_SLOT,), NB, np.int32)
+        rs = NO_RESET.copy()
         if t == 1:
             zb[0] = NB - 1                # zero the spare block this tick
+        if t == 2:
+            rs[0] = True                  # reset slot 0's SSD state this tick
         f = feed(toks, C, adv, pos)
         jl, jcache = step(jp, jnp.asarray(f), jcache, jnp.asarray(bt),
-                          jnp.asarray(pos), jnp.asarray(adv), jnp.asarray(zb))
+                          jnp.asarray(pos), jnp.asarray(adv), jnp.asarray(zb),
+                          jnp.asarray(rs))
         tl, tcache = lm.decode_chunk(
             tcfg, tp, torch.from_numpy(f), tcache, torch.from_numpy(bt),
             torch.from_numpy(pos), torch.from_numpy(adv),
-            zero_blocks=torch.from_numpy(zb))
+            zero_blocks=torch.from_numpy(zb), reset_slots=torch.from_numpy(rs))
         live = [(b, j) for b in range(B) for j in range(adv[b])]
         got = np.stack([tl.numpy()[b, j] for b, j in live])
         want = np.stack([np.asarray(jl)[b, j] for b, j in live])
         assert rel_err(got, want) < 1e-4, t
-        for n in ("k", "v"):
+        for n in ("state", "conv") if "ssd" in jcache else ():
+            ts, js = tcache["ssd"][n].numpy(), np.asarray(jcache["ssd"][n])
+            assert np.max(np.abs(ts - js)) <= 1e-4 * max(np.max(np.abs(js)), 1.0), (t, n)
+        for n in ("k", "v") if has_kv else ():
             tk, jk = tcache["kv"][n].numpy(), np.asarray(jcache["kv"][n])
             assert np.max(np.abs(tk - jk)) <= 1e-5 * max(np.max(np.abs(jk)), 1.0), (t, n)
             assert not tk[:, 0].any()                        # sentinel stays zero
@@ -340,6 +371,8 @@ def test_decode_chunk_matches_jax(arch, mode):
                 assert not tk[:, NB - 1].any()               # zero-epoched
             else:
                 assert tk[:, NB - 1].any()
+    if not has_kv:
+        return
     # every slot's K rows past its clock are still zero: nothing padded was written
     for b in range(B):
         flat = tcache["kv"]["k"].numpy()[:, bt[b]].reshape(tcfg.num_layers, -1,
@@ -348,10 +381,42 @@ def test_decode_chunk_matches_jax(arch, mode):
         assert not flat[:, S_TOTAL:].any()
 
 
+def test_decode_chunk_reset_zeroes_only_its_slots():
+    """reset_slots zeroes the chosen slots' SSD state and conv window in
+    place before the chunk runs; an idle slot (adv 0) keeps its state."""
+    _, tcfg, _, tp = world("mamba2-780m")
+    cache = lm.init_paged_cache(tcfg, 3, 1, BS, "cpu")
+    rng = np.random.RandomState(6)
+    for a in cache["ssd"].values():
+        a.copy_(torch.from_numpy(rng.randn(*a.shape).astype(np.float32)))
+    before = {n: a.clone() for n, a in cache["ssd"].items()}
+    adv = torch.tensor([0, 0, 0], dtype=torch.int32)
+    lm.decode_chunk(tcfg, tp, torch.zeros((3, 1), dtype=torch.int32), cache,
+                    torch.zeros((3, 1), dtype=torch.int32),
+                    torch.zeros(3, dtype=torch.int32), adv,
+                    reset_slots=torch.tensor([False, True, False]))
+    for n, a in cache["ssd"].items():
+        assert not a[:, 1].any()
+        assert torch.equal(a[:, 0], before[n][:, 0])
+        assert torch.equal(a[:, 2], before[n][:, 2])
+
+
+def test_paged_cache_layers_are_separate_tensors():
+    """The stacked SSD cache holds real zeros per layer: writing one
+    layer leaves the others (JAX's broadcast_to views would alias)."""
+    _, tcfg, _, _ = world("hymba-1.5b")
+    cache = lm.init_paged_cache(tcfg, 2, 3, BS, "cpu")
+    cache["ssd"]["state"][0].fill_(1.0)
+    assert not cache["ssd"]["state"][1:].any()
+    assert cache["ssd"]["state"].dtype == torch.float32
+    assert cache["ssd"]["conv"].shape == (
+        tcfg.num_layers, 2, tcfg.conv_kernel - 1, tcfg.ssm_d_inner + 2 * tcfg.ssm_state)
+
+
 def test_other_families_raise_not_implemented():
     from repro_torch.configs.registry import get_config
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        get_config("mamba2-780m")
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        get_config("internvl2-1b")
     with pytest.raises(NotImplementedError, match="slice 3"):
         get_config("arctic-480b")
     cfg = smoke_config("yi-34b").replace(family="moe", num_experts=4)

@@ -4,8 +4,8 @@
   ``test_serve.py`` (no model runs);
 * the port's ``ServeEngine`` must give exactly the JAX engine's greedy
   tokens on the same parameters and prompts: chunked prefill, staggered
-  joins, a recycled slot, and a sliding-window model served past its
-  window;
+  joins, a recycled slot (for mamba2 and hymba too, where the SSD state
+  reset carries it), and a sliding-window model served past its window;
 * typed request errors, ``Router`` dispatch and backpressure, device
   resolution, and the ``launch.serve`` entry point.
 """
@@ -209,6 +209,40 @@ class TestEquivalenceWithJax:
         fresh = make_port_engine("yi-34b", batch_slots=1)
         fresh.submit(B_PROMPT, max_new_tokens=6)
         assert fresh.run()[0].generated == out[1][1]
+
+    @pytest.mark.parametrize("arch", ["mamba2-780m", "hymba-1.5b"])
+    def test_ssm_recycled_slot_equals_fresh_engine(self, arch):
+        """SSD state is cumulative, so a recycled slot depends on
+        decode_chunk's reset_slots: the second request through one slot
+        gives the JAX engine's tokens and a fresh engine's."""
+        out = []
+        for make in (make_jax_engine, make_port_engine):
+            eng = make(arch, batch_slots=1)
+            ra = eng.submit(A_PROMPT, max_new_tokens=6)
+            rb = eng.submit(B_PROMPT, max_new_tokens=6)
+            eng.run()
+            assert ra.done and rb.done
+            out.append([ra.generated, rb.generated])
+        assert out[0] == out[1]
+        fresh = make_port_engine(arch, batch_slots=1)
+        fresh.submit(B_PROMPT, max_new_tokens=6)
+        assert fresh.run()[0].generated == out[1][1]
+
+    @pytest.mark.parametrize("arch", ["mamba2-780m", "hymba-1.5b"])
+    def test_ssm_staggered_joins(self, arch):
+        """Mixed prefill/decode chunks: padded rows must not advance a
+        slot's SSD recurrence."""
+        out = []
+        for make in (make_jax_engine, make_port_engine):
+            eng = make(arch)
+            r1 = eng.submit(PROMPT, max_new_tokens=6)
+            eng.step()
+            r2 = eng.submit([8, 1, 4, 4, 2, 6], max_new_tokens=6)
+            eng.step()
+            r3 = eng.submit(B_PROMPT, max_new_tokens=5)
+            eng.run()
+            out.append([r1.generated, r2.generated, r3.generated])
+        assert out[0] == out[1]
 
     def test_sliding_window_model_past_its_window(self):
         """danube's smoke window is 16: a 23-token prompt and 10 new

@@ -24,15 +24,18 @@ from a seed), in phases:
   8. mamba2 in f32: one layer's ssd_apply on the card (kernel) vs the
      CPU (plain), ServeEngine first-token logits (sequential SSD
      decode) vs prefill (chunked, kernel), staggered joins, and a
-     recycled slot vs fresh engines; hymba in f32: prefill with the
-     flash and SSD kernels vs the dense attention path;
+     recycled slot vs fresh engines;
   9. mamba2 serving in bf16 through the Router: the mix of phase 6;
      then the profile of its serving ticks;
-  10. the kernels line: launches on the two paths (phases 5-6, the
-     dense path; phases 8-9, the ssm/hybrid path), and each kernel's
-     time at its path's shapes (taken after phase 4b) beside its plain
-     version, a PyTorch library call computing the same function where
-     there is one, and its bound.
+  10. hymba in f32: prefill with the flash and SSD kernels vs the dense
+     attention path;
+  11. the kernels line: launches on the three paths (phases 5-6, the
+     dense path; phases 8-9, the ssm path; phase 10's kernel prefill,
+     the hybrid path), each path's counts set to 0 just before it and
+     read just after, and each kernel's time at its paths' shapes
+     (taken after phase 4b) beside its plain version, a PyTorch library
+     call computing the same function where there is one, and its
+     bound.
 
 Any failed check raises, so the exit code is non-zero and no result
 line is printed. Without a CUDA device the script exits with code 1
@@ -185,7 +188,10 @@ def phase_build():
 
 
 def phase_rmsnorm(gen):
-    """Norm weights near their init value of 1. The plain version runs on
+    """At every width the main paths give the kernel: danube's d_model
+    2560 (and 7168, a wider dense model), mamba2's d_model 1536 and
+    d_inner 3072 (the gated norm), hymba's 1600 and 3200. Norm weights
+    near their init value of 1. The plain version runs on
     the same inputs in f32 (its final cast left out): kernel and plain
     differ in the last f32 bit (reduction order, rsqrt), and two bf16
     roundings of such values can land one bf16 step (0.03 at |y| >= 4)
@@ -193,16 +199,17 @@ def phase_rmsnorm(gen):
     import torch
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
-    worst = {}
+    worst, n = {}, 0
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-        for D in (2560, 7168):
-            for rows in (1, 64, 4096, 8192):
+        for D in (1536, 1600, 2560, 3072, 3200, 7168):
+            for rows in (1, 4, 64, 4096, 8192):
                 x = torch.randn(rows, D, device=DEVICE, generator=gen).to(dtype)
                 s = 1 + 0.1 * torch.randn(D, device=DEVICE, generator=gen)
                 err = max_abs(rmsnorm(x, s), rmsnorm_ref(x.float(), s))
                 check(err <= tol, f"rmsnorm rows={rows} D={D} {dtype}: {err} > {tol}")
                 worst[str(dtype)] = max(worst.get(str(dtype), 0.0), err)
-    log(f"[rmsnorm] 16 cases vs plain ok; max abs err {worst}")
+                n += 1
+    log(f"[rmsnorm] {n} cases vs plain ok; max abs err {worst}")
 
 
 def phase_flash(gen):
@@ -390,7 +397,7 @@ def phase_model_f32(rng):
 
 
 def phase_ssm_f32(rng):
-    """mamba2 at full width and depth in f32, and hymba at full width."""
+    """mamba2 at full width and depth in f32."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.models import layers, lm
@@ -445,21 +452,41 @@ def phase_ssm_f32(rng):
     del params
     torch.cuda.empty_cache()
 
+
+def phase_hybrid_f32(rng):
+    """hymba at full width and depth in f32: lm.prefill with the flash
+    and SSD kernels vs the dense attention path (whose SSD layers run
+    the SSD kernel too) on a 2048-token prompt, where the window of
+    1024 binds. The hybrid path is the kernel prefill alone: the counts
+    are set to 0 just before it and read just after, and returned."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import lm
     cfg = get_config(HYBRID_ARCH).replace(param_dtype="float32", compute_dtype="float32")
     params = lm.init_params(cfg, SEED, DEVICE)
     toks = torch.tensor([rng.randint(0, cfg.vocab_size, size=2048).tolist()],
                         device=DEVICE)
     with torch.no_grad():
+        reset_launch_counts()
         lk, _ = lm.prefill(cfg, params, {"tokens": toks}, attention_impl="kernel")
+        counts = launch_counts()
         ld, _ = lm.prefill(cfg, params, {"tokens": toks}, attention_impl="dense")
     e_h = rel_err(lk, ld)
     check(bool(torch.isfinite(lk).all()) and e_h <= 1e-3,
           f"hymba prefill kernel vs dense: rel err {e_h} > 1e-3")
-    log(f"[hybrid f32] {cfg.name} {cfg.num_layers} layers (full depth) d_model "
-        f"{cfg.d_model}, 2048-token prompt, window {cfg.sliding_window}: prefill with "
-        f"the flash and SSD kernels vs dense attention rel err {e_h:.3g}")
+    # per layer: norm1 for the cache's K/V, norm1, the gated norm and
+    # norm2 in the layer body; then the final norm
+    L = cfg.num_layers
+    want = {"flash_attention": L, "ssd_chunk": L, "rmsnorm": 4 * L + 1}
+    check(counts == want, f"hymba kernel prefill launches {counts} != {want}")
+    log(f"[hybrid f32] {cfg.name} {L} layers (full depth) d_model {cfg.d_model}, "
+        f"2048-token prompt, window {cfg.sliding_window}: prefill with the flash and "
+        f"SSD kernels vs dense attention rel err {e_h:.3g}; kernel prefill "
+        f"launches {counts}")
     del params
     torch.cuda.empty_cache()
+    return counts
 
 
 def phase_serve_bf16(rng, arch):
@@ -595,27 +622,36 @@ def phase_kernel_times(gen):
     from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref
     cfg, ssm_cfg = get_config(ARCH), get_config(SSM_ARCH)
 
-    out = []
-    # RMSNorm at a serving tick: 4 slots x a 16-token chunk, d_model 2560
-    D = cfg.d_model
-    x = torch.randn(4, 16, D, device=DEVICE, generator=gen).to(torch.bfloat16)
-    s = (1 + 0.1 * torch.randn(D, device=DEVICE, generator=gen)).to(torch.bfloat16)
-    nbytes = 2 * x.numel() * x.element_size() + s.numel() * s.element_size()
-    lib = None
-    if hasattr(F, "rms_norm"):
-        lib = time_ms(lambda: F.rms_norm(x, (D,), s, cfg.norm_eps))
-    out.append({
+    def rmsnorm_at(shape, eps):
+        D = shape[-1]
+        x = torch.randn(*shape, device=DEVICE, generator=gen).to(torch.bfloat16)
+        s = (1 + 0.1 * torch.randn(D, device=DEVICE, generator=gen)).to(torch.bfloat16)
+        nbytes = 2 * x.numel() * x.element_size() + s.numel() * s.element_size()
+        lib = None
+        if hasattr(F, "rms_norm"):
+            lib = time_ms(lambda: F.rms_norm(x, (D,), s, eps))
+        return {
+            "max_abs_err": max_abs(rmsnorm(x, s, eps), rmsnorm_ref(x.float(), s, eps)),
+            "ms": time_ms(lambda: rmsnorm(x, s, eps)),
+            "plain_ms": time_ms(lambda: rmsnorm_ref(x, s, eps)),
+            "device_ms": kernel_device_ms(lambda: rmsnorm(x, s, eps), "_rmsnorm_kernel"),
+            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+            "library_ms": lib, "shape": list(shape), "dtype": "bfloat16"}
+
+    # RMSNorm at danube's serving tick (4 slots x a 16-token chunk, d_model
+    # 2560), and at mamba2's, which makes most of the launches: the gated
+    # norm of every ssd_decode step (4 slots, d_inner 3072) and norm1 of a
+    # 16-token tick (d_model 1536)
+    out = [{
         "name": "rmsnorm", "route": "triton",
         "source": "src/repro_torch/kernels/rmsnorm/rmsnorm.py",
         "replaces": "src/repro/kernels/rmsnorm/rmsnorm.py:24",
-        "max_abs_err": max_abs(rmsnorm(x, s, cfg.norm_eps),
-                               rmsnorm_ref(x.float(), s, cfg.norm_eps)),
-        "ms": time_ms(lambda: rmsnorm(x, s, cfg.norm_eps)),
-        "plain_ms": time_ms(lambda: rmsnorm_ref(x, s, cfg.norm_eps)),
-        "device_ms": kernel_device_ms(lambda: rmsnorm(x, s, cfg.norm_eps),
-                                      "_rmsnorm_kernel"),
-        "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
-        "library_ms": lib, "shape": [4, 16, D], "dtype": "bfloat16"})
+        **rmsnorm_at((4, 16, cfg.d_model), cfg.norm_eps),
+        "by_shape": [
+            {"use": f"{SSM_ARCH} gated norm, every ssd_decode step",
+             **rmsnorm_at((4, ssm_cfg.ssm_d_inner), ssm_cfg.norm_eps)},
+            {"use": f"{SSM_ARCH} norm1, a 16-token tick",
+             **rmsnorm_at((4, 16, ssm_cfg.d_model), ssm_cfg.norm_eps)}]}]
 
     # flash attention at the 2048-token prefill of danube
     B, S, H, K, d, W = 1, 2048, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, cfg.sliding_window
@@ -726,16 +762,22 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
-    reset_launch_counts()                      # the ssm/hybrid path: phases 8-9
+    reset_launch_counts()                      # the ssm path: phases 8-9
     phase_ssm_f32(rng)
     ssm_cfg, params = phase_serve_bf16(rng, SSM_ARCH)
     paths["ssm"] = launch_counts()
     log(f"[ssm path] kernel launches in phases 8-9: {paths['ssm']}")
-    for kname in ("rmsnorm", "flash_attention", "ssd_chunk"):
-        check(paths["ssm"][kname] > 0, f"kernel {kname} was not launched on the ssm path")
+    # mamba2 is attention-free; one SSD launch per layer in each of the
+    # f32 and bf16 prefills, and one for the layer-0 check on the card
+    want_ssd = 2 * ssm_cfg.num_layers + 1
+    check(paths["ssm"]["flash_attention"] == 0 and paths["ssm"]["rmsnorm"] > 0
+          and paths["ssm"]["ssd_chunk"] == want_ssd,
+          f"ssm path launches {paths['ssm']}: want no flash, {want_ssd} SSD")
     phase_profile(ssm_cfg, params, rng)
     del params
     torch.cuda.empty_cache()
+
+    paths["hybrid"] = phase_hybrid_f32(rng)    # the hybrid path: phase 10
 
     kernels = kernels_line(times, paths)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -106,6 +106,22 @@ def abstract_params(cfg: ModelConfig) -> Params:
 # ---------------------------------------------------------------------------
 
 
+def _residual(cfg: ModelConfig, lp: Params, x: torch.Tensor,
+              att: Optional[torch.Tensor], y_ssd: Optional[torch.Tensor]
+              ) -> torch.Tensor:
+    """The rest of a layer once its mixers have run: ``x + ssd`` (ssm),
+    ``x + att`` (dense) or ``x + (att + ssd)/2`` (hybrid), then the MLP
+    block where the family has one. ``att`` is None for the ssm family,
+    ``y_ssd`` None for dense."""
+    if cfg.family == "ssm":
+        return x + y_ssd
+    if cfg.hybrid:
+        att = 0.5 * (att + y_ssd)
+    x = x + att
+    h2 = rmsnorm(lp["norm2"], x, cfg.norm_eps)
+    return x + mlp_apply(cfg, lp["mlp"], h2)
+
+
 def _layer_body(cfg: ModelConfig, lp: Params, x: torch.Tensor,
                 positions: torch.Tensor, attention_impl: str,
                 return_state: bool
@@ -113,20 +129,15 @@ def _layer_body(cfg: ModelConfig, lp: Params, x: torch.Tensor,
     """One layer; with ``return_state`` also the SSD cache state that
     ``ssd_apply`` leaves after the sequence (None without an SSD)."""
     h = rmsnorm(lp["norm1"], x, cfg.norm_eps)
-    st = None
+    att = y_ssd = st = None
     if _has_ssd(cfg):
         if return_state:
             y_ssd, st = ssd_apply(cfg, lp["ssd"], h, return_state=True)
         else:
             y_ssd = ssd_apply(cfg, lp["ssd"], h)
-    if cfg.family == "ssm":
-        return x + y_ssd, st
-    att = attention_apply(cfg, lp["attn"], h, positions, attention_impl)
-    if cfg.hybrid:
-        att = 0.5 * (att + y_ssd)
-    x = x + att
-    h2 = rmsnorm(lp["norm2"], x, cfg.norm_eps)
-    return x + mlp_apply(cfg, lp["mlp"], h2), st
+    if cfg.family != "ssm":
+        att = attention_apply(cfg, lp["attn"], h, positions, attention_impl)
+    return _residual(cfg, lp, x, att, y_ssd), st
 
 
 def layer_apply(cfg: ModelConfig, lp: Params, x: torch.Tensor,
@@ -285,19 +296,14 @@ def decode_chunk(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     for li in range(cfg.num_layers):
         lp = _layer(params["layers"], li)
         hn = rmsnorm(lp["norm1"], x, cfg.norm_eps)
+        att = y_ssd = None
         if _has_ssd(cfg):
             y_ssd, new_ssd = ssd_decode_chunk(cfg, lp["ssd"], hn, _layer(ssd, li), adv)
             _write_layer(ssd, li, new_ssd)
-        if cfg.family == "ssm":
-            x = x + y_ssd
-            continue
-        att, _ = attention_decode_paged(cfg, lp["attn"], hn, _layer(kv, li),
-                                        block_table, pos, adv)
-        if cfg.hybrid:
-            att = 0.5 * (att + y_ssd)
-        x = x + att
-        h2 = rmsnorm(lp["norm2"], x, cfg.norm_eps)
-        x = x + mlp_apply(cfg, lp["mlp"], h2)
+        if cfg.family != "ssm":
+            att, _ = attention_decode_paged(cfg, lp["attn"], hn, _layer(kv, li),
+                                            block_table, pos, adv)
+        x = _residual(cfg, lp, x, att, y_ssd)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return lm_head(cfg, params, x), cache
 
@@ -312,18 +318,13 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     for li in range(cfg.num_layers):
         lp = _layer(params["layers"], li)
         hn = rmsnorm(lp["norm1"], x, cfg.norm_eps)
+        att = y_ssd = None
         if _has_ssd(cfg):
             y_ssd, new_ssd = ssd_decode(cfg, lp["ssd"], hn, _layer(cache["ssd"], li))
             _write_layer(cache["ssd"], li, new_ssd)
-        if cfg.family == "ssm":
-            x = x + y_ssd
-            continue
-        att, _ = attention_decode(cfg, lp["attn"], hn, _layer(cache["kv"], li), pos)
-        if cfg.hybrid:
-            att = 0.5 * (att + y_ssd)
-        x = x + att
-        h2 = rmsnorm(lp["norm2"], x, cfg.norm_eps)
-        x = x + mlp_apply(cfg, lp["mlp"], h2)
+        if cfg.family != "ssm":
+            att, _ = attention_decode(cfg, lp["attn"], hn, _layer(cache["kv"], li), pos)
+        x = _residual(cfg, lp, x, att, y_ssd)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = lm_head(cfg, params, x)
     return logits, {**cache, "pos": pos + 1}

@@ -33,7 +33,10 @@ def cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,D", [(1, 2560), (64, 2560), (4096, 7168)])
+@pytest.mark.parametrize("rows,D", [
+    (1, 2560), (64, 2560), (4096, 7168),
+    # mamba2's d_model and gated norm (d_inner), hymba's d_model and d_inner
+    (64, 1536), (4, 3072), (2048, 3072), (64, 1600), (2048, 3200)])
 def test_rmsnorm_kernel_matches_plain_on_gpu(cuda, dtype, rows, D):
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(rows, D, device=cuda, generator=g).to(dtype)

@@ -11,10 +11,13 @@ full depth, and runs hymba-1.5b (hybrid) at full width (random weights
 from a seed), in phases:
 
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: nvcc for the CUDA flash-attention and SSD-chunk libraries,
-     Triton's JIT for the RMSNorm kernel;
-  3. RMSNorm kernel vs its plain version;
-  4. flash-attention kernel vs its plain version (and its gradient);
+  2. build: nvcc for the three CUDA libraries (RMSNorm, flash attention,
+     SSD chunk), all at once;
+  3. RMSNorm kernel vs its plain version (f32, bf16 and f16 x; f32 and
+     bf16 scales; contiguous and strided rows);
+  4. flash-attention kernels vs their plain version (bf16 on tensor
+     cores, f32 scalar; danube's, hymba's and other shapes; a misaligned
+     bf16 view) and the gradient;
   4b. SSD-chunk kernel vs its plain version;
   5. danube in f32: prefill with the flash kernel vs the dense path,
      ServeEngine chunked-prefill first-token logits vs prefill, and a
@@ -34,8 +37,8 @@ from a seed), in phases:
      the hybrid path), each path's counts set to 0 just before it and
      read just after, and each kernel's time at its paths' shapes
      (taken after phase 4b) beside its plain version, a PyTorch library
-     call computing the same function where there is one, and its
-     bound.
+     call computing the same function where there is one, its bound and
+     its own device time (a missing profiler record fails the run).
 
 Any failed check raises, so the exit code is non-zero and no result
 line is printed. Without a CUDA device the script exits with code 1
@@ -121,11 +124,11 @@ def kernel_events(prof):
     return out
 
 
-def kernel_device_ms(fn, kernel: str, n: int = 20):
+def kernel_device_ms(fn, kernel: str, n: int = 20) -> float:
     """Median device duration of the one kernel named ``kernel`` that
-    ``fn`` launches, over the launches torch.profiler recorded; None when
-    it recorded none. The median of the kernel's own records, not a sum
-    over the window divided by ``n``, so a record the profiler drops
+    ``fn`` launches, over the launches torch.profiler recorded; raises
+    when it recorded none. The median of the kernel's own records, not a
+    sum over the window divided by ``n``, so a record the profiler drops
     cannot shrink the time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -137,7 +140,8 @@ def kernel_device_ms(fn, kernel: str, n: int = 20):
         torch.cuda.synchronize()
     us = [e.device_time_total for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
-    return statistics.median(us) / 1e3 if us else None
+    check(bool(us), f"torch.profiler recorded no device activity named {kernel!r}")
+    return statistics.median(us) / 1e3
 
 
 def tree_map(fn, tree):
@@ -159,11 +163,10 @@ def rel_err(a, b) -> float:
 # ---------------------------------------------------------------------------
 
 def phase_build():
-    import torch
-    from repro_torch.kernels.build import load_library
     from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels.build import load_library
     from repro_torch.kernels.flash_attention import flash_attention as fa
-    from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_fwd
+    from repro_torch.kernels.rmsnorm import rmsnorm as rn
     from repro_torch.kernels.ssd_scan import ssd_scan
 
     def build(name, source):
@@ -172,19 +175,13 @@ def phase_build():
         return time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:          # one nvcc per source, together
-        jobs = {name: ex.submit(build, name, src) for name, src in
-                (("flash_attention", fa.SOURCE), ("ssd_chunk", ssd_scan.SOURCE))}
+    libs = (("rmsnorm", rn.SOURCE), ("flash_attention", fa.SOURCE),
+            ("ssd_chunk", ssd_scan.SOURCE))
+    with ThreadPoolExecutor(len(libs)) as ex:  # one nvcc per source, together
+        jobs = {name: ex.submit(build, name, src) for name, src in libs}
         secs = {name: job.result() for name, job in jobs.items()}
-    t1 = time.perf_counter()
-    for dt in (torch.float32, torch.bfloat16):
-        rmsnorm_fwd(torch.ones(2, 2560, device=DEVICE, dtype=dt),
-                    torch.ones(2560, device=DEVICE))
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    log(f"[build] nvcc flash_attention: {secs['flash_attention']:.1f} s, "
-        f"ssd_chunk: {secs['ssd_chunk']:.1f} s (in parallel: {t1 - t0:.1f} s); "
-        f"triton rmsnorm (f32+bf16 JIT): {t2 - t1:.1f} s")
+    log("[build] nvcc " + ", ".join(f"{k}: {v:.1f} s" for k, v in secs.items())
+        + f" (in parallel: {time.perf_counter() - t0:.1f} s)")
 
 
 def phase_rmsnorm(gen):
@@ -209,11 +206,41 @@ def phase_rmsnorm(gen):
                 check(err <= tol, f"rmsnorm rows={rows} D={D} {dtype}: {err} > {tol}")
                 worst[str(dtype)] = max(worst.get(str(dtype), 0.0), err)
                 n += 1
+    # the kernel's other dtypes: f16 x, and a bf16 scale (as the bf16
+    # models hold their norm weights)
+    for dtype, s_dtype, tol in ((torch.float16, torch.float32, BF16_TOL),
+                                (torch.float16, torch.bfloat16, BF16_TOL),
+                                (torch.bfloat16, torch.bfloat16, BF16_TOL),
+                                (torch.float32, torch.bfloat16, F32_TOL)):
+        for rows, D in ((4, 3072), (64, 2560), (8192, 1536)):
+            x = torch.randn(rows, D, device=DEVICE, generator=gen).to(dtype)
+            s = (1 + 0.1 * torch.randn(D, device=DEVICE, generator=gen)).to(s_dtype)
+            err = max_abs(rmsnorm(x, s), rmsnorm_ref(x.float(), s))
+            key = f"{dtype} x, {s_dtype} scale"
+            check(err <= tol, f"rmsnorm rows={rows} D={D} {key}: {err} > {tol}")
+            worst[key] = max(worst.get(key, 0.0), err)
+            n += 1
+    # strided rows: a column slice read in place by the vector path, one
+    # that starts off a 16-byte boundary (the scalar path), and leading
+    # dimensions that do not fold into rows (copied first)
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        base = torch.randn(4, 16, 3200, device=DEVICE, generator=gen).to(dtype)
+        s = 1 + 0.1 * torch.randn(3072, device=DEVICE, generator=gen)
+        for view, x in (("vector", base[..., :3072]), ("scalar", base[..., 1:3073]),
+                        ("copied", base[..., :3072].transpose(0, 1))):
+            err = max_abs(rmsnorm(x, s), rmsnorm_ref(x.float(), s))
+            check(err <= tol, f"rmsnorm strided ({view}) {dtype}: {err} > {tol}")
+            worst[str(dtype)] = max(worst[str(dtype)], err)
+            n += 1
     log(f"[rmsnorm] {n} cases vs plain ok; max abs err {worst}")
 
 
 def phase_flash(gen):
+    """Both kernels (bf16 on tensor cores, f32 scalar) against the plain
+    version; the bf16 kernel rounds P to bf16 for P.V, which the bf16
+    tolerance covers."""
     import torch
+    from repro_torch.kernels.flash_attention.flash_attention import cp_async_ready
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
     cases = []
@@ -221,7 +248,9 @@ def phase_flash(gen):
         for S in (200, 2048):
             for window in (0, 256, 4096):
                 cases.append((2 if S == 200 else 1, S, 32, 8, d, True, window))
-    cases += [(2, 200, 32, 8, 80, False, 0), (1, 333, 8, 2, 64, True, 100)]
+    cases += [(2, 200, 32, 8, 80, False, 0), (1, 333, 8, 2, 64, True, 100),
+              (1, 2048, 25, 5, 64, True, 1024),    # hymba's prefill: 25/5 heads
+              (1, 4096, 32, 8, 80, True, 4096)]    # danube: the window binds at the end
     worst = {}
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         for B, S, H, K, d, causal, window in cases:
@@ -233,6 +262,16 @@ def phase_flash(gen):
             check(err <= tol, f"flash B={B} S={S} H={H} K={K} d={d} causal={causal} "
                               f"window={window} {dtype}: {err} > {tol}")
             worst[str(dtype)] = max(worst.get(str(dtype), 0.0), err)
+    # a bf16 q whose seq stride (644 elements) is not a multiple of 8: the
+    # wrapper copies it for the kernel's 16-byte copies
+    base = torch.randn(1, 300, 8 * 80 + 4, device=DEVICE, generator=gen).to(torch.bfloat16)
+    q = base[..., :640].unflatten(-1, (8, 80))
+    k, v = (torch.randn(1, 300, 2, 80, device=DEVICE, generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    check(not cp_async_ready(q), "the misaligned view passes the cp.async check")
+    err = max_abs(flash_attention(q, k, v, True, 0), attention_ref(q, k, v))
+    check(err <= BF16_TOL, f"flash misaligned bf16 view: {err} > {BF16_TOL}")
+    worst["bf16 misaligned view"] = err
     # gradient of q through the autograd.Function vs the plain version's
     q, k, v = (torch.randn(1, 64, n, 64, device=DEVICE, generator=gen) for n in (4, 2, 2))
     q1 = q.clone().requires_grad_(True)
@@ -241,7 +280,7 @@ def phase_flash(gen):
     attention_ref(q2, k, v).sum().backward()
     gerr = max_abs(q1.grad, q2.grad)
     check(gerr <= 1e-4, f"flash dq: {gerr} > 1e-4")
-    log(f"[flash] {2 * len(cases)} cases vs plain ok; max abs err {worst}; "
+    log(f"[flash] {2 * len(cases) + 1} cases vs plain ok; max abs err {worst}; "
         f"dq err {gerr:.3g}")
 
 
@@ -598,11 +637,14 @@ def phase_profile(cfg, params, rng):
                 "rmsnorm_launches_per_tick": norms_per_tick(
                     cfg, 16 if regime == "prefill_chunk16" else 1),
                 "rmsnorm_records_per_tick": sum(
-                    c for k, c, _ in evs if "_rmsnorm_kernel" in k) / n,
+                    c for k, c, _ in evs if "rmsnorm_kernel" in k) / n,
                 "top_device_ms_per_tick": [[k[:70], c / n, us / n / 1e3]
                                            for k, c, us in top]}
     check(all(r is not None and r.t_first_token is not None for r in eng.active),
           "profile engine lost a request")
+    for regime, o in out.items():
+        check(o["rmsnorm_records_per_tick"] > 0,
+              f"{cfg.name} {regime}: the profiler recorded no rmsnorm_kernel")
     log(f"[profile {cfg.name}] {json.dumps(out)}")
 
 
@@ -634,7 +676,7 @@ def phase_kernel_times(gen):
             "max_abs_err": max_abs(rmsnorm(x, s, eps), rmsnorm_ref(x.float(), s, eps)),
             "ms": time_ms(lambda: rmsnorm(x, s, eps)),
             "plain_ms": time_ms(lambda: rmsnorm_ref(x, s, eps)),
-            "device_ms": kernel_device_ms(lambda: rmsnorm(x, s, eps), "_rmsnorm_kernel"),
+            "device_ms": kernel_device_ms(lambda: rmsnorm(x, s, eps), "rmsnorm_kernel"),
             "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
             "library_ms": lib, "shape": list(shape), "dtype": "bfloat16"}
 
@@ -643,8 +685,8 @@ def phase_kernel_times(gen):
     # norm of every ssd_decode step (4 slots, d_inner 3072) and norm1 of a
     # 16-token tick (d_model 1536)
     out = [{
-        "name": "rmsnorm", "route": "triton",
-        "source": "src/repro_torch/kernels/rmsnorm/rmsnorm.py",
+        "name": "rmsnorm", "route": "cuda",
+        "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm/rmsnorm.py:24",
         **rmsnorm_at((4, 16, cfg.d_model), cfg.norm_eps),
         "by_shape": [
@@ -653,38 +695,55 @@ def phase_kernel_times(gen):
             {"use": f"{SSM_ARCH} norm1, a 16-token tick",
              **rmsnorm_at((4, 16, ssm_cfg.d_model), ssm_cfg.norm_eps)}]}]
 
-    # flash attention at the 2048-token prefill of danube
-    B, S, H, K, d, W = 1, 2048, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, cfg.sliding_window
-    q = torch.randn(B, S, H, d, device=DEVICE, generator=gen).to(torch.bfloat16)
-    k = torch.randn(B, S, K, d, device=DEVICE, generator=gen).to(torch.bfloat16)
-    v = torch.randn(B, S, K, d, device=DEVICE, generator=gen).to(torch.bfloat16)
-    pairs = sum(min(i + 1, W) if W > 0 else i + 1 for i in range(S))   # unmasked (q, k)
-    flops = 4 * d * H * B * pairs
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    lib = None
-    if W == 0 or W >= S:          # the window does not bind: plain causal SDPA
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        try:
+    # flash attention at the 2048-token prefill of danube in bf16 (the
+    # tensor-core kernel) and f32 (the scalar kernel), and at hymba's
+    def flash_at(B, S, H, K, d, W, dtype):
+        q = torch.randn(B, S, H, d, device=DEVICE, generator=gen).to(dtype)
+        k = torch.randn(B, S, K, d, device=DEVICE, generator=gen).to(dtype)
+        v = torch.randn(B, S, K, d, device=DEVICE, generator=gen).to(dtype)
+        pairs = sum(min(i + 1, W) if W > 0 else i + 1 for i in range(S))  # unmasked (q, k)
+        flops = 4 * d * H * B * pairs
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+        t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+        lib = None
+        if W == 0 or W >= S:      # the window does not bind: plain causal SDPA
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             lib = time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True))
-        except TypeError:         # a PyTorch without enable_gqa
-            log("[kernels] scaled_dot_product_attention has no enable_gqa")
+        else:
+            log(f"[kernels] flash {dtype} S={S} window={W}: library_ms null, "
+                f"scaled_dot_product_attention has no sliding window but an "
+                f"explicit mask, which would run another kernel")
+        name = "flash_fwd_mma_kernel" if dtype == torch.bfloat16 else "flash_fwd_kernel"
+        reps, inner = (15, 10) if dtype == torch.bfloat16 else (9, 3)
+        return {
+            "max_abs_err": max_abs(flash_attention(q, k, v, True, W),
+                                   attention_ref(q, k, v, causal=True, window=W)),
+            "ms": time_ms(lambda: flash_attention(q, k, v, True, W), reps=reps, inner=inner),
+            "plain_ms": time_ms(lambda: attention_ref(q, k, v, causal=True, window=W),
+                                reps=9, inner=3),
+            "device_ms": kernel_device_ms(lambda: flash_attention(q, k, v, True, W),
+                                          name, n=5),
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "library_ms": lib, "kernel": name, "shape": [B, S, H, K, d],
+            "dtype": str(dtype).replace("torch.", ""), "window": W, "flops": flops}
+
+    danube = (1, 2048, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
+              cfg.sliding_window)
+    hymba = get_config(HYBRID_ARCH)
     out.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:86",
-        "max_abs_err": max_abs(flash_attention(q, k, v, True, W),
-                               attention_ref(q, k, v, causal=True, window=W)),
-        "ms": time_ms(lambda: flash_attention(q, k, v, True, W), reps=9, inner=3),
-        "plain_ms": time_ms(lambda: attention_ref(q, k, v, causal=True, window=W),
-                            reps=9, inner=3),
-        "device_ms": kernel_device_ms(lambda: flash_attention(q, k, v, True, W),
-                                      "flash_fwd_kernel", n=5),
-        "bound_ms": 1e3 * max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S),
-        "bound_by": "operations" if flops / BF16_FLOPS_PER_S > nbytes / HBM_BYTES_PER_S
-        else "bytes",
-        "library_ms": lib, "shape": [B, S, H, K, d], "dtype": "bfloat16",
-        "window": W})
+        **flash_at(*danube, torch.bfloat16),
+        "by_shape": [
+            {"use": f"{ARCH} f32 prefill (the scalar kernel)",
+             **flash_at(*danube, torch.float32)},
+            {"use": f"{HYBRID_ARCH} bf16 prefill, the window binds",
+             **flash_at(1, 2048, hymba.num_heads, hymba.num_kv_heads,
+                        hymba.resolved_head_dim, hymba.sliding_window, torch.bfloat16)}]})
 
     # the SSD chunk at mamba2's 2048-token prefill: x bf16, the rest f32,
     # the decays of mamba2's init. Least work: C.B^T once per chunk and,
@@ -756,8 +815,12 @@ def main() -> int:
     cfg, params = phase_serve_bf16(rng, ARCH)
     paths["dense"] = launch_counts()
     log(f"[dense path] kernel launches in phases 5-6: {paths['dense']}")
-    for kname in ("rmsnorm", "flash_attention"):
-        check(paths["dense"][kname] > 0, f"kernel {kname} was not launched on the dense path")
+    # one flash launch per layer in each of the f32 and bf16 prefills;
+    # the RMSNorm launches of the serving ticks are checked in phase 6
+    want_flash = 2 * cfg.num_layers
+    check(paths["dense"]["flash_attention"] == want_flash
+          and paths["dense"]["ssd_chunk"] == 0 and paths["dense"]["rmsnorm"] > 0,
+          f"dense path launches {paths['dense']}: want {want_flash} flash, no SSD")
     phase_profile(cfg, params, rng)
     del params
     torch.cuda.empty_cache()

@@ -20,8 +20,10 @@ __all__ = ["params_from_jax", "tensor_from_numpy"]
 
 
 def tensor_from_numpy(arr: np.ndarray,
-                      device: Union[str, torch.device] = "cpu") -> torch.Tensor:
-    """One leaf, bit-exact. ``torch.from_numpy`` rejects the
+                      device: Optional[Union[str, torch.device]] = None
+                      ) -> torch.Tensor:
+    """One leaf, bit-exact, on ``device`` (``None`` = the GPU; pass
+    ``"cpu"`` for the CPU). ``torch.from_numpy`` rejects the
     ``ml_dtypes`` bfloat16 that JAX arrays convert to, so bf16 goes
     through a ``uint16`` view of the same bits. The copy also makes the
     read-only buffers ``np.asarray`` gives for JAX arrays writable."""
@@ -31,7 +33,7 @@ def tensor_from_numpy(arr: np.ndarray,
         t = torch.from_numpy(bits).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(arr, copy=True))
-    return t.to(device)
+    return t.to(resolve_device(device))
 
 
 def params_from_jax(tree: Mapping[str, Any],

@@ -6,59 +6,347 @@
 // in VMEM scratch from one grid step to the next. Blocks on a GPU run in
 // parallel and in no order, so here each block owns one (query tile, head,
 // batch) cell and loops over the KV tiles *inside* the kernel, keeping the
-// running max m, denominator l (shared memory) and accumulator acc
-// (registers) in f32 for the whole loop.
+// running max m, denominator l and accumulator acc in f32 for the whole
+// loop. Keys k >= S, k > q (causal) and k <= q - window are masked with
+// -1e30 exactly as the TPU kernel does; KV tiles that hold no unmasked key
+// for any row of the block are skipped by the loop bounds.
 //
-// What bounds it on the card: at prefill lengths, operations — S^2 * d work
-// per head against S * d bytes. The tensor-core bound (989 TFLOP/s bf16) is
-// far out of reach of this first version, which multiplies with scalar f32
-// FMAs from shared memory. Its design choices are for being right and simple:
-//   * Q, K, V and the score tile live in shared memory as f32, rows padded
-//     to an odd stride so that the micro-tile reads are free of bank
-//     conflicts; each thread computes a 4 x 4 score micro-tile and a
-//     4 x (d/16) output micro-tile, so every shared-memory load feeds
-//     several FMAs;
-//   * the loop bounds skip KV tiles that are entirely in the future
-//     (causal) or entirely before the sliding window, rather than
-//     predicating them; inside a tile, keys k >= S, k > q and k <= q - window
-//     are masked with -1e30 exactly as the TPU kernel does;
-//   * q, k, v and o are read and written through their (B, S, H, d) strides:
-//     no transposed copies.
-// Tensor cores (mma.sync, then wgmma with TMA) are work for later versions.
+// What bounds it on the card: at prefill lengths, operations — S^2 * d
+// work per head against S * d bytes, far above the ~295 flops per byte at
+// which an H100's bf16 tensor cores (989 TFLOP/s) outrun its memory.
 //
-// Instantiated for f32 and bf16, and for head_dim 64, 80 and 128.
+// Two kernels, chosen by dtype:
+//
+// * bf16: `flash_fwd_mma_kernel<D>`, FlashAttention-2 on warp-level
+//   tensor cores (mma.sync.m16n8k16, bf16 in, f32 accumulate). 4 warps,
+//   each owning 16 of the block's 64 query rows; KV tiles of 64 keys.
+//     - Q is copied once into shared memory with 16-byte cp.async and
+//       loaded by ldmatrix into A fragments that stay in registers for
+//       the whole KV loop.
+//     - K and V tiles are double-buffered: tile j+1's cp.async is in
+//       flight while tile j is multiplied. Rows past S are zero-filled by
+//       the copy itself (src-size 0).
+//     - Shared-memory rows are padded by 16 bytes (row strides of 144,
+//       176 and 272 bytes at d = 64, 80, 128), so the 8 row addresses of
+//       each ldmatrix phase fall in 8 distinct 16-byte bank groups.
+//     - S = Q K^T takes K's B fragments from ldmatrix; O += P V takes V's
+//       from ldmatrix.trans. P goes from the accumulator layout of S
+//       straight into A fragments, with no trip through shared memory.
+//     - The online softmax runs in registers, in base 2 (log2(e) folded
+//       into the scale): each row's max is reduced over the 4 threads of
+//       a quad with two shuffles; each thread keeps a partial row sum,
+//       reduced over the quad once, after the loop.
+//     - Masks are computed only on the tiles that straddle the diagonal,
+//       the window's edge or S (per warp).
+//     - Query tiles are issued last-first, so the blocks with the most KV
+//       tiles (causal) start first and the short ones fill the tail.
+//   Precision: P is rounded to bf16 for the P V product (the TPU kernel
+//   keeps P in f32); the row sum l is taken over the f32 P. This is the
+//   only change in precision. m, l and acc stay in f32.
+//
+// * f32: `flash_fwd_kernel<D>`, the scalar kernel: f32 FMAs from
+//   shared memory (Q, K, V and the score tile as f32, rows padded to odd
+//   strides; each thread a 4 x 4 score micro-tile and a 4 x (d/16) output
+//   micro-tile), the softmax by one thread per row. f32 is the parity
+//   dtype; TF32 tensor cores would not hold its 2e-5 tolerance.
+//
+// q, k, v and o are read and written through their (B, S, H, d) strides:
+// no transposed copies. The bf16 kernel's cp.async needs 16-byte aligned
+// base pointers and (batch, seq, head) strides that are multiples of 8
+// elements; the Python wrapper copies a view that fails that check.
+// Instantiated for head_dim 64, 80 and 128. `cudaFuncSetAttribute` runs
+// once per instantiation.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
+
+constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (mma.sync)
+// ---------------------------------------------------------------------------
+
+constexpr int MMA_BQ = 64;          // query rows per block (16 per warp)
+constexpr int MMA_BK = 64;          // keys per KV tile
+constexpr int MMA_WARPS = 4;
+constexpr int MMA_THREADS = 32 * MMA_WARPS;
+
+template <int D>
+__host__ __device__ constexpr int mma_ld() { return D + 8; }   // shared row stride, elements
+
+template <int D>
+constexpr size_t mma_smem_bytes() {        // Q + double-buffered K and V
+  return sizeof(__nv_bfloat16) * (size_t)(MMA_BQ + 4 * MMA_BK) * mma_ld<D>();
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; bytes past `src_bytes` (0 or 16) are zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);   // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// Copy 64 rows of D bf16 from global (row stride `stride` elements) into a
+// shared tile of row stride mma_ld<D>(); rows at or past `valid` are
+// zero-filled.
+template <int D>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          long long stride, int valid) {
+  constexpr int CPR = D / 8;                // 16-byte chunks per row
+  constexpr int LD = mma_ld<D>();
+  for (int i = threadIdx.x; i < 64 * CPR; i += MMA_THREADS) {
+    const int r = i / CPR, c = (i % CPR) * 8;
+    const bool ok = r < valid;
+    cp_async16(dst + r * LD + c, ok ? src + r * stride + c : src, ok ? 16 : 0);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                     int S, int G,
+                     int q_sb, int q_ss, int q_sh,
+                     int k_sb, int k_ss, int k_sh,
+                     int v_sb, int v_ss, int v_sh,
+                     int o_sb, int o_ss, int o_sh,
+                     int causal, int window, float scale) {
+  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
+  constexpr int LD = mma_ld<D>();
+  constexpr int KS = D / 16;          // k-steps of Q K^T; d pairs of P V
+  constexpr int NT = MMA_BK / 8;      // score n-tiles per warp
+  constexpr int OT = D / 8;           // output n-tiles per warp
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Ks = Qs + MMA_BQ * LD;           // 2 buffers of MMA_BK x LD
+  __nv_bfloat16* Vs = Ks + 2 * MMA_BK * LD;       // 2 buffers of MMA_BK x LD
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gid = lane >> 2;          // row within an 8-row group
+  const int tig = lane & 3;           // thread in quad
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * MMA_BQ;   // heavy tiles first
+  const int qw = q0 + warp * 16;      // this warp's first query row
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kh = h / G;               // GQA: q-head h reads kv-head h / (H/K)
+
+  const __nv_bfloat16* qb = q + (long long)b * q_sb + (long long)h * q_sh;
+  const __nv_bfloat16* kb = k + (long long)b * k_sb + (long long)kh * k_sh;
+  const __nv_bfloat16* vb = v + (long long)b * v_sb + (long long)kh * v_sh;
+
+  // KV tiles that hold at least one unmasked key for some row of the block
+  const int nk = (S + MMA_BK - 1) / MMA_BK;
+  int kt_end = nk;
+  if (causal) kt_end = min(nk, (q0 + MMA_BQ - 1) / MMA_BK + 1);
+  int kt_begin = 0;
+  if (window > 0) {
+    const int first = q0 - window + 1;          // first key row q0 may see
+    kt_begin = first > 0 ? first / MMA_BK : 0;
+  }
+
+  // group 0: Q; group 1: the first K, V tile
+  load_tile<D>(Qs, qb + (long long)q0 * q_ss, q_ss, S - q0);
+  cp_async_commit();
+  if (kt_begin < kt_end) {
+    const int k0 = kt_begin * MMA_BK;
+    load_tile<D>(Ks, kb + (long long)k0 * k_ss, k_ss, S - k0);
+    load_tile<D>(Vs, vb + (long long)k0 * v_ss, v_ss, S - k0);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+
+  // Q A fragments: rows qw + (lane & 15), columns 16 kk + 8 (lane >> 4)
+  uint32_t qf[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+
+  float acc[OT][4];
+#pragma unroll
+  for (int j = 0; j < OT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m_run[2] = {NEG_INF, NEG_INF};    // rows gid, gid + 8 (log2 domain)
+  float l_run[2] = {0.f, 0.f};            // this thread's partial row sums
+  const float scale2 = scale * LOG2E;
+
+  // ldmatrix row/column offsets of this lane for K (non-trans) and V (trans)
+  const int k_row = (lane & 7) + ((lane >> 4) << 3), k_col = ((lane >> 3) & 1) * 8;
+  const int v_row = (lane & 7) + (((lane >> 3) & 1) << 3), v_col = (lane >> 4) * 8;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int buf = (kt - kt_begin) & 1;
+    if (kt + 1 < kt_end) {              // prefetch tile kt + 1 into the other buffer
+      const int k1 = (kt + 1) * MMA_BK;
+      load_tile<D>(Ks + (buf ^ 1) * MMA_BK * LD, kb + (long long)k1 * k_ss, k_ss, S - k1);
+      load_tile<D>(Vs + (buf ^ 1) * MMA_BK * LD, vb + (long long)k1 * v_ss, v_ss, S - k1);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();                 // tile kt has landed
+    __syncthreads();
+    const __nv_bfloat16* Kt = Ks + buf * MMA_BK * LD;
+    const __nv_bfloat16* Vt = Vs + buf * MMA_BK * LD;
+    const int k0 = kt * MMA_BK;
+
+    // S = Q K^T for this warp's 16 rows x 64 keys
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int jp = 0; jp < NT / 2; ++jp) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, Kt + (jp * 16 + k_row) * LD + kk * 16 + k_col);
+        mma_bf16(s[2 * jp], qf[kk], kf[0], kf[1]);
+        mma_bf16(s[2 * jp + 1], qf[kk], kf[2], kf[3]);
+      }
+    }
+
+    // scale into base 2; mask only where the tile straddles an edge
+    const bool edge = k0 + MMA_BK > S || (causal && k0 + MMA_BK - 1 > qw) ||
+                      (window > 0 && k0 <= qw + 15 - window);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale2;
+        if (edge) {
+          const int qp = qw + gid + (e >> 1) * 8;
+          const int kp = k0 + j * 8 + tig * 2 + (e & 1);
+          bool ok = kp < S;
+          if (causal) ok = ok && kp <= qp;
+          if (window > 0) ok = ok && kp > qp - window;
+          x = ok ? x : NEG_INF;
+        }
+        s[j][e] = x;
+      }
+
+    // online softmax, rows gid (elements 0, 1) and gid + 8 (elements 2, 3)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m_run[r];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float alpha = exp2f(m_run[r] - mx);
+      m_run[r] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float p0 = exp2f(s[j][2 * r] - mx), p1 = exp2f(s[j][2 * r + 1] - mx);
+        s[j][2 * r] = p0;
+        s[j][2 * r + 1] = p1;
+        sum += p0 + p1;
+      }
+      l_run[r] = l_run[r] * alpha + sum;
+#pragma unroll
+      for (int j = 0; j < OT; ++j) {
+        acc[j][2 * r] *= alpha;
+        acc[j][2 * r + 1] *= alpha;
+      }
+    }
+
+    // O += P V: P's A fragments straight from the score accumulators
+#pragma unroll
+    for (int t = 0; t < MMA_BK / 16; ++t) {
+      uint32_t pf[4];
+      pf[0] = pack_bf16(s[2 * t][0], s[2 * t][1]);
+      pf[1] = pack_bf16(s[2 * t][2], s[2 * t][3]);
+      pf[2] = pack_bf16(s[2 * t + 1][0], s[2 * t + 1][1]);
+      pf[3] = pack_bf16(s[2 * t + 1][2], s[2 * t + 1][3]);
+#pragma unroll
+      for (int dp = 0; dp < KS; ++dp) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, Vt + (t * 16 + v_row) * LD + dp * 16 + v_col);
+        mma_bf16(acc[2 * dp], pf, vf[0], vf[1]);
+        mma_bf16(acc[2 * dp + 1], pf, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();                    // buffer buf is free for tile kt + 2
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int qp = qw + gid + r * 8;
+    if (qp >= S) continue;
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    __nv_bfloat16* orow = o + (long long)b * o_sb + (long long)qp * o_ss + (long long)h * o_sh;
+#pragma unroll
+    for (int j = 0; j < OT; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + tig * 2) =
+          __floats2bfloat162_rn(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32: scalar FMAs
+// ---------------------------------------------------------------------------
 
 constexpr int BQ = 64;          // query rows per block
 constexpr int BK = 64;          // keys per KV tile
 constexpr int THREADS = 256;    // 16 x 16 threads
-constexpr float NEG_INF = -1e30f;
-
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);   // round to nearest even, as torch's cast
-}
 
 template <int D>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (size_t)(BQ * (D + 1) + 2 * BK * (D + 1) + BQ * (BK + 1) + 3 * BQ);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  int S, int G,
                  int q_sb, int q_ss, int q_sh,
                  int k_sb, int k_ss, int k_sh,
@@ -87,14 +375,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.z;
   const int kh = h / G;             // GQA: q-head h reads kv-head h // (H/K)
 
-  const T* qb = q + (long long)b * q_sb + (long long)h * q_sh;
-  const T* kb = k + (long long)b * k_sb + (long long)kh * k_sh;
-  const T* vb = v + (long long)b * v_sb + (long long)kh * v_sh;
+  const float* qb = q + (long long)b * q_sb + (long long)h * q_sh;
+  const float* kb = k + (long long)b * k_sb + (long long)kh * k_sh;
+  const float* vb = v + (long long)b * v_sb + (long long)kh * v_sh;
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, c = i % D;
     const int qp = q0 + r;
-    Qs[r * DP + c] = qp < S ? to_f32(qb[(long long)qp * q_ss + c]) : 0.f;
+    Qs[r * DP + c] = qp < S ? qb[(long long)qp * q_ss + c] : 0.f;
   }
   if (tid < BQ) {
     m_s[tid] = NEG_INF;
@@ -124,8 +412,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = i / D, c = i % D;
       const int kp = k0 + r;
       const bool ok = kp < S;
-      Ks[r * DP + c] = ok ? to_f32(kb[(long long)kp * k_ss + c]) : 0.f;
-      Vs[r * DP + c] = ok ? to_f32(vb[(long long)kp * v_ss + c]) : 0.f;
+      Ks[r * DP + c] = ok ? kb[(long long)kp * k_ss + c] : 0.f;
+      Vs[r * DP + c] = ok ? vb[(long long)kp * v_ss + c] : 0.f;
     }
     __syncthreads();
 
@@ -210,60 +498,81 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qp = q0 + r;
     if (qp >= S) continue;
     const float denom = fmaxf(l_s[r], 1e-30f);
-    T* orow = o + (long long)b * o_sb + (long long)qp * o_ss + (long long)h * o_sh;
+    float* orow = o + (long long)b * o_sb + (long long)qp * o_ss + (long long)h * o_sh;
 #pragma unroll
-    for (int j = 0; j < DC; ++j) orow[tx + 16 * j] = from_f32<T>(acc[i][j] / denom);
+    for (int j = 0; j < DC; ++j) orow[tx + 16 * j] = acc[i][j] / denom;
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int H, int K, const int* st,
-                   int causal, int window, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, H / K,
+// ---------------------------------------------------------------------------
+// Launch
+// ---------------------------------------------------------------------------
+
+// Each launcher raises its kernel's dynamic shared-memory limit once: C++
+// initialises a function-local static once per template instantiation,
+// thread-safely, and the result is kept for every later launch.
+
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
+                        int B, int S, int H, int K, const int* st,
+                        int causal, int window, float scale, cudaStream_t stream) {
+  constexpr size_t smem = mma_smem_bytes<D>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((S + MMA_BQ - 1) / MMA_BQ, H, B);
+  flash_fwd_mma_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, H / K,
       st[0], st[1], st[2], st[3], st[4], st[5],
       st[6], st[7], st[8], st[9], st[10], st[11],
       causal, window, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
-                       int B, int S, int H, int K, int D, const int* st,
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       int B, int S, int H, int K, const int* st,
                        int causal, int window, float scale, cudaStream_t stream) {
-  switch (D) {
-    case 64: return launch<T, 64>(q, k, v, o, B, S, H, K, st, causal, window, scale, stream);
-    case 80: return launch<T, 80>(q, k, v, o, B, S, H, K, st, causal, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, H, K, st, causal, window, scale, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  constexpr size_t smem = smem_bytes<D>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((S + BQ - 1) / BQ, H, B);
+  flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, H / K,
+      st[0], st[1], st[2], st[3], st[4], st[5],
+      st[6], st[7], st[8], st[9], st[10], st[11],
+      causal, window, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // q, o: (B, S, H, D); k, v: (B, S, K, D), last dimension contiguous.
 // strides: 12 ints, (batch, seq, head) element strides of q, k, v, o.
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() of the launch.
+// dtype: 0 = float32 (scalar kernel), 1 = bfloat16 (tensor-core kernel;
+// base pointers 16-byte aligned, strides multiples of 8 elements).
+// Returns cudaGetLastError() of the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int B, int S, int H, int K, int D, int dtype,
                                    const int* strides, int causal, int window,
                                    float scale, void* stream) {
   if (B <= 0 || S <= 0 || K <= 0 || H % K != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_d<float>(q, k, v, o, B, S, H, K, D, strides, causal, window, scale, st);
-  else if (dtype == 1)
-    err = dispatch_d<__nv_bfloat16>(q, k, v, o, B, S, H, K, D, strides, causal, window,
-                                    scale, st);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  if (dtype == 0) {
+    switch (D) {
+      case 64: return (int)launch_f32<64>(q, k, v, o, B, S, H, K, strides, causal, window, scale, st);
+      case 80: return (int)launch_f32<80>(q, k, v, o, B, S, H, K, strides, causal, window, scale, st);
+      case 128: return (int)launch_f32<128>(q, k, v, o, B, S, H, K, strides, causal, window, scale, st);
+    }
+  } else if (dtype == 1) {
+    switch (D) {
+      case 64: return (int)launch_bf16<64>(q, k, v, o, B, S, H, K, strides, causal, window, scale, st);
+      case 80: return (int)launch_bf16<80>(q, k, v, o, B, S, H, K, strides, causal, window, scale, st);
+      case 128: return (int)launch_bf16<128>(q, k, v, o, B, S, H, K, strides, causal, window, scale, st);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 }

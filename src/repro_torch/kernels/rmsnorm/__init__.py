@@ -1,1 +1,1 @@
-"""RMSNorm: plain version (``ref``), Triton kernel (``rmsnorm``), wrapper (``ops``)."""
+"""RMSNorm: plain version (``ref``), CUDA kernel and binding (``csrc``, ``rmsnorm``), wrapper (``ops``)."""

@@ -1,7 +1,7 @@
 """Dispatching RMSNorm wrapper with a launch counter.
 
 CPU tensors take the plain version (:func:`.ref.rmsnorm_ref`); CUDA
-tensors launch the Triton kernel, and anything else raises. There is no
+tensors launch the CUDA kernel, and anything else raises. There is no
 fallback from the kernel to the plain version.
 """
 
@@ -21,10 +21,10 @@ launches = 0
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     global launches
+    if x.is_cuda:
+        out = rmsnorm_fwd(x, scale, eps)
+        launches += 1
+        return out
     if x.device.type == "cpu":
         return rmsnorm_ref(x, scale, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"rmsnorm: no kernel for device {x.device}")
-    out = rmsnorm_fwd(x, scale, eps)
-    launches += 1
-    return out
+    raise ValueError(f"rmsnorm: no kernel for device {x.device}")

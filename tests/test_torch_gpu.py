@@ -1,13 +1,13 @@
 """The hand-written kernels against their plain versions, on the card.
 
-Every test here needs a CUDA device (the CUDA and Triton kernels have no
-CPU mode) and skips without one. The file imports no JAX, so it runs on
+Every test here needs a CUDA device (the CUDA kernels have no CPU mode)
+and skips without one. The file imports no JAX, so it runs on
 a GPU machine that has only PyTorch:
 
   PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Tolerances are those of ``test_kernels.py``: 2e-5 in f32, 2e-2 in bf16,
-and 1e-4 for the SSD chunk; at mamba2-like decays the SSD chunk is held
+Tolerances are those of ``test_kernels.py``: 2e-5 in f32, 2e-2 in bf16
+(and in f16), and 1e-4 for the SSD chunk; at mamba2-like decays the SSD chunk is held
 to a relative bound (see ``ssd_inputs``).
 """
 
@@ -31,54 +31,139 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,D", [
-    (1, 2560), (64, 2560), (4096, 7168),
-    # mamba2's d_model and gated norm (d_inner), hymba's d_model and d_inner
-    (64, 1536), (4, 3072), (2048, 3072), (64, 1600), (2048, 3200)])
-def test_rmsnorm_kernel_matches_plain_on_gpu(cuda, dtype, rows, D):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    x = torch.randn(rows, D, device=cuda, generator=g).to(dtype)
-    s = 1 + 0.1 * torch.randn(D, device=cuda, generator=g)
+def tol(dtype) -> float:
+    return 2e-5 if dtype == torch.float32 else 2e-2
+
+
+def rmsnorm_checked(x, s):
+    """One call: exactly one launch, and the output against the plain
+    version taken on the same inputs in f32 (its final cast left out):
+    kernel and plain differ in the last f32 bit (reduction order, rsqrt),
+    and two bf16 roundings of such values can land one bf16 step apart,
+    which is 0.03 at |y| >= 4."""
     before = launch_counts()["rmsnorm"]
     out = rmsnorm(x, s)
     torch.cuda.synchronize()
     assert launch_counts()["rmsnorm"] == before + 1
-    # The plain version is taken on the same inputs in f32 (its final
-    # cast left out): kernel and plain differ in the last f32 bit
-    # (reduction order, rsqrt), and two bf16 roundings of such values
-    # can land one bf16 step apart, which is 0.03 at |y| >= 4.
-    err = float((out.float() - rmsnorm_ref(x.float(), s)).abs().max())
-    assert err < (2e-2 if dtype == torch.bfloat16 else 2e-5)
+    assert out.dtype == x.dtype and out.shape == x.shape
+    return float((out.float() - rmsnorm_ref(x.float(), s)).abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("rows,D", [
+    (1, 2560), (64, 2560), (4096, 7168),
+    # mamba2's d_model and gated norm (d_inner), hymba's d_model and d_inner
+    (64, 1536), (4, 3072), (2048, 3072), (64, 1600), (2048, 3200),
+    # the widest rows: a wide dense model's 7168, and 8192
+    (1, 7168), (8192, 7168), (1, 8192), (8192, 8192),
+    (3, 1000), (5, 37)])                        # D off the vector width
+def test_rmsnorm_kernel_matches_plain_on_gpu(cuda, dtype, rows, D):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(rows, D, device=cuda, generator=g).to(dtype)
+    s = 1 + 0.1 * torch.randn(D, device=cuda, generator=g)
+    assert rmsnorm_checked(x, s) < tol(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [1536, 3072, 7168])
+def test_rmsnorm_kernel_takes_a_bf16_scale(cuda, dtype, D):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(64, D, device=cuda, generator=g).to(dtype)
+    s = (1 + 0.1 * torch.randn(D, device=cuda, generator=g)).to(torch.bfloat16)
+    assert rmsnorm_checked(x, s) < tol(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("view", ["row_slice", "odd_offset", "transposed"])
+def test_rmsnorm_kernel_reads_strided_x(cuda, dtype, view):
+    """A column slice (evenly spaced rows, read in place by the vector
+    path), a slice that starts off a 16-byte boundary (the scalar path),
+    and leading dimensions that do not fold (copied first)."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    base = torch.randn(4, 16, 3200, device=cuda, generator=g).to(dtype)
+    x = {"row_slice": base[..., :3072], "odd_offset": base[..., 1:3073],
+         "transposed": base[..., :3072].transpose(0, 1)}[view]
+    assert not x.is_contiguous()
+    s = 1 + 0.1 * torch.randn(3072, device=cuda, generator=g)
+    assert rmsnorm_checked(x, s) < tol(dtype)
+
+
+@pytest.mark.gpu
+def test_rmsnorm_kernel_rejects_dtypes_it_was_not_built_for(cuda):
+    x = torch.randn(4, 64, device=cuda)
+    with pytest.raises(TypeError):
+        rmsnorm(x, torch.ones(64, device=cuda, dtype=torch.float16))
+    with pytest.raises(TypeError):
+        rmsnorm(x.double(), torch.ones(64, device=cuda))
+
+
+def flash_checked(q, k, v, causal, window):
+    before = launch_counts()["flash_attention"]
+    out = flash_attention(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == before + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    ref = attention_ref(q, k, v, causal=causal, window=window)
+    return float((out.float() - ref.float()).abs().max())
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,H,K,d,causal,window", [
     (200, 32, 8, 80, True, 0), (256, 32, 8, 80, True, 64),
-    (130, 8, 2, 128, True, 0), (96, 4, 4, 64, False, 0)])
+    (130, 8, 2, 128, True, 0), (96, 4, 4, 64, False, 0),
+    (200, 8, 2, 64, True, 0), (256, 4, 1, 128, True, 64), (96, 4, 4, 80, False, 0),
+    (333, 25, 5, 64, True, 100),               # hymba's 25/5 grouping, S % 64 != 0
+    (300, 8, 2, 80, False, 70),                # a window without causality
+    (1, 4, 2, 80, True, 0), (65, 4, 2, 128, True, 0)])
 def test_flash_kernel_matches_plain_on_gpu(cuda, dtype, S, H, K, d, causal, window):
     g = torch.Generator(device=cuda).manual_seed(0)
     q = torch.randn(2, S, H, d, device=cuda, generator=g).to(dtype)
     k = torch.randn(2, S, K, d, device=cuda, generator=g).to(dtype)
     v = torch.randn(2, S, K, d, device=cuda, generator=g).to(dtype)
-    out = flash_attention(q, k, v, causal, window)
-    torch.cuda.synchronize()
-    ref = attention_ref(q, k, v, causal=causal, window=window)
-    err = float((out.float() - ref.float()).abs().max())
-    assert err < (2e-2 if dtype == torch.bfloat16 else 2e-5)
+    assert flash_checked(q, k, v, causal, window) < tol(dtype)
 
 
 @pytest.mark.gpu
-def test_flash_kernel_reads_strided_views(cuda):
-    """q, k, v as head slices of one fused (B, S, H+2K, d) tensor."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_hymbas_prefill(cuda, dtype):
+    """hymba-1.5b: 25/5 heads of 64, a 2048-token prompt, window 1024."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn(1, 2048, 25, 64, device=cuda, generator=g).to(dtype)
+    k = torch.randn(1, 2048, 5, 64, device=cuda, generator=g).to(dtype)
+    v = torch.randn(1, 2048, 5, 64, device=cuda, generator=g).to(dtype)
+    assert flash_checked(q, k, v, True, 1024) < tol(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_reads_strided_views(cuda, dtype):
+    """q, k, v as head slices of one fused (B, S, H+2K, d) tensor: aligned,
+    so the bf16 path reads them in place."""
     g = torch.Generator(device=cuda).manual_seed(1)
-    qkv = torch.randn(2, 100, 48, 80, device=cuda, generator=g)
+    qkv = torch.randn(2, 100, 48, 80, device=cuda, generator=g).to(dtype)
     q, k, v = qkv[:, :, :32], qkv[:, :, 32:40], qkv[:, :, 40:]
-    out = flash_attention(q, k, v, True, 0)
-    ref = attention_ref(q, k, v, causal=True, window=0)
-    assert float((out - ref).abs().max()) < 2e-5
+    assert flash_checked(q, k, v, True, 0) < tol(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("view", ["seq_stride", "offset"])
+def test_flash_bf16_copies_misaligned_views(cuda, view):
+    """A bf16 view whose sequence stride is not a multiple of 8 elements,
+    or whose first element is off a 16-byte boundary: the wrapper copies
+    it and the kernel agrees with the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    base = torch.randn(2, 150, 8 * 80 + 4, device=cuda, generator=g).to(torch.bfloat16)
+    if view == "seq_stride":
+        q = base[..., :640].unflatten(-1, (8, 80))
+    else:
+        q = base[..., 1:641].unflatten(-1, (8, 80))
+    k = torch.randn(2, 150, 2, 80, device=cuda, generator=g).to(torch.bfloat16)
+    v = torch.randn(2, 150, 2, 80, device=cuda, generator=g).to(torch.bfloat16)
+    assert flash_checked(q, k, v, True, 0) < 2e-2
 
 
 @pytest.mark.gpu

@@ -76,7 +76,7 @@ def chunk_inputs(rng, b, nc, Q, N, H, P, da_scale=0.1):
 def test_plain_ssd_chunk_matches_jax(b, nc, Q, N, H, P, x_dtype):
     C, B, x, dt, da = chunk_inputs(np.random.RandomState(Q + N), b, nc, Q, N, H, P)
     jx = jnp.asarray(x).astype(x_dtype)
-    tx = convert.tensor_from_numpy(np.asarray(jx))
+    tx = convert.tensor_from_numpy(np.asarray(jx), device="cpu")
     got = ssd_chunk(t(C), t(B), tx, t(dt), t(da))
     for want in (jax_ssd_chunk(*map(jnp.asarray, (C, B)), jx, *map(jnp.asarray, (dt, da))),
                  jax_ssd_chunk_ref(*map(jnp.asarray, (C, B)), jx,

@@ -67,6 +67,13 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 F32_TOL, BF16_TOL = 2e-5, 2e-2     # kernel vs plain, as tests/test_kernels.py
+# flash vs its plain version in f32, per output row: the row's largest
+# error over the row's RMS. Late rows average thousands of keys, so their
+# outputs are ~0.03 and an absolute bound cannot see a fault confined to
+# late KV tiles. f32: the scalar kernel only reorders f32 sums. bf16: the
+# output's rounding is <= 2^-8 of an element, an element <= ~4x its row's
+# RMS at d <= 128, and P's rounding adds ~2^-9.
+FLASH_ROW_REL_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 5e-2}
 SSD_TOL = 1e-4                     # SSD chunk vs plain, abs, as tests/test_kernels.py
 # SSD chunk vs plain at model-like decays (da = dt * A, A down to -16),
 # relative: cum reaches -1e3 at Q = 256, where an f32 cum_i - cum_j
@@ -92,23 +99,50 @@ def gpu_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+def event_window(fn, inner: int) -> float:
+    """ms per call of ``fn`` over one CUDA-event window of ``inner`` calls."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(inner):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / inner
+
+
 def time_ms(fn, reps: int = 15, inner: int = 10) -> float:
     """Median over ``reps`` CUDA-event windows of ``inner`` launches."""
     import torch
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return statistics.median(times)
+    return statistics.median(event_window(fn, inner) for _ in range(reps))
+
+
+def time_pair(fn, lib, rounds: int = 15, inner: int = 20) -> dict:
+    """``fn`` against ``lib`` in alternating CUDA-event windows of
+    ``inner`` calls (``fn`` first in even rounds, ``lib`` in odd): each
+    one's median time per call and the per-round ratio fn/lib (median,
+    least, most), so host noise that comes and goes hits both alike."""
+    import torch
+    for _ in range(5):
+        fn()
+        lib()
+    torch.cuda.synchronize()
+    ts, ls = [], []
+    for r in range(rounds):
+        if r % 2:
+            ls.append(event_window(lib, inner))
+            ts.append(event_window(fn, inner))
+        else:
+            ts.append(event_window(fn, inner))
+            ls.append(event_window(lib, inner))
+    ratios = [t / l for t, l in zip(ts, ls)]
+    return {"ms": statistics.median(ts), "library_ms": statistics.median(ls),
+            "ratio_median": statistics.median(ratios), "ratio_min": min(ratios),
+            "ratio_max": max(ratios)}
 
 
 def kernel_events(prof):
@@ -144,6 +178,21 @@ def kernel_device_ms(fn, kernel: str, n: int = 20) -> float:
     return statistics.median(us) / 1e3
 
 
+def device_kernels(fn) -> list:
+    """Names of the kernels one call of ``fn`` launches, by torch.profiler,
+    each cut to 80 characters: which kernel a library call chose."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [k[:80] for k, *_ in kernel_events(prof) if not k.startswith("Mem")]
+    check(bool(names), "torch.profiler recorded no kernel of a library call")
+    return names
+
+
 def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
@@ -156,6 +205,12 @@ def max_abs(a, b) -> float:
 
 def rel_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+def row_rel_err(out, ref) -> float:
+    """The worst row's largest error over that row's RMS in ``ref``."""
+    err = (out.float() - ref.float()).abs().amax(-1)
+    return float((err / ref.float().pow(2).mean(-1).sqrt()).max())
 
 
 # ---------------------------------------------------------------------------
@@ -251,17 +306,25 @@ def phase_flash(gen):
     cases += [(2, 200, 32, 8, 80, False, 0), (1, 333, 8, 2, 64, True, 100),
               (1, 2048, 25, 5, 64, True, 1024),    # hymba's prefill: 25/5 heads
               (1, 4096, 32, 8, 80, True, 4096)]    # danube: the window binds at the end
-    worst = {}
+    worst, worst_row = {}, {}
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        row_tol = FLASH_ROW_REL_TOL[str(dtype)]
         for B, S, H, K, d, causal, window in cases:
             q = torch.randn(B, S, H, d, device=DEVICE, generator=gen).to(dtype)
             k = torch.randn(B, S, K, d, device=DEVICE, generator=gen).to(dtype)
             v = torch.randn(B, S, K, d, device=DEVICE, generator=gen).to(dtype)
             out = flash_attention(q, k, v, causal, window)
-            err = max_abs(out, attention_ref(q, k, v, causal=causal, window=window))
-            check(err <= tol, f"flash B={B} S={S} H={H} K={K} d={d} causal={causal} "
-                              f"window={window} {dtype}: {err} > {tol}")
+            # the plain version in f32 on the same inputs; cast to the
+            # inputs' dtype it is attention_ref(q, k, v) bit for bit
+            ref = attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                                window=window)
+            what = f"flash B={B} S={S} H={H} K={K} d={d} causal={causal} window={window} {dtype}"
+            err = max_abs(out, ref.to(dtype))
+            check(err <= tol, f"{what}: {err} > {tol}")
+            row = row_rel_err(out, ref)
+            check(row <= row_tol, f"{what}: row error / row RMS {row} > {row_tol}")
             worst[str(dtype)] = max(worst.get(str(dtype), 0.0), err)
+            worst_row[str(dtype)] = max(worst_row.get(str(dtype), 0.0), row)
     # a bf16 q whose seq stride (644 elements) is not a multiple of 8: the
     # wrapper copies it for the kernel's 16-byte copies
     base = torch.randn(1, 300, 8 * 80 + 4, device=DEVICE, generator=gen).to(torch.bfloat16)
@@ -281,7 +344,7 @@ def phase_flash(gen):
     gerr = max_abs(q1.grad, q2.grad)
     check(gerr <= 1e-4, f"flash dq: {gerr} > 1e-4")
     log(f"[flash] {2 * len(cases) + 1} cases vs plain ok; max abs err {worst}; "
-        f"dq err {gerr:.3g}")
+        f"worst row error / row RMS {worst_row}; dq err {gerr:.3g}")
 
 
 def ssd_inputs(gen, b, nc, Q, N, H, P, x_dtype, model_like):
@@ -648,6 +711,34 @@ def phase_profile(cfg, params, rng):
     log(f"[profile {cfg.name}] {json.dumps(out)}")
 
 
+def rmsnorm_inputs(gen, shape):
+    """bf16 x and scale for the kernel's timings, as a served model's."""
+    import torch
+    x = torch.randn(*shape, device=DEVICE, generator=gen).to(torch.bfloat16)
+    s = (1 + 0.1 * torch.randn(shape[-1], device=DEVICE, generator=gen)).to(torch.bfloat16)
+    return x, s
+
+
+def rmsnorm_vs_library(x, s, eps) -> dict:
+    """The RMSNorm kernel against ``F.rms_norm`` on the same inputs, in
+    alternating windows (``time_pair``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    D = x.shape[-1]
+    return time_pair(lambda: rmsnorm(x, s, eps), lambda: F.rms_norm(x, (D,), s, eps))
+
+
+def phase_rmsnorm_fresh(gen):
+    """The kernels line's reading at mamba2's gated-norm shape, taken right
+    after the build, before any other phase has run."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(SSM_ARCH)
+    x, s = rmsnorm_inputs(gen, (4, cfg.ssm_d_inner))
+    out = rmsnorm_vs_library(x, s, cfg.norm_eps)
+    log(f"[rmsnorm fresh] (4, {cfg.ssm_d_inner}) bf16, before any other phase: "
+        f"{json.dumps(out)}")
+
+
 def phase_kernel_times(gen):
     """Each kernel at its path's bf16 shapes: kernel, plain version,
     library call, and the bound. Taken before the main paths run: after
@@ -664,36 +755,39 @@ def phase_kernel_times(gen):
     from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref
     cfg, ssm_cfg = get_config(ARCH), get_config(SSM_ARCH)
 
-    def rmsnorm_at(shape, eps):
-        D = shape[-1]
-        x = torch.randn(*shape, device=DEVICE, generator=gen).to(torch.bfloat16)
-        s = (1 + 0.1 * torch.randn(D, device=DEVICE, generator=gen)).to(torch.bfloat16)
-        nbytes = 2 * x.numel() * x.element_size() + s.numel() * s.element_size()
-        lib = None
-        if hasattr(F, "rms_norm"):
-            lib = time_ms(lambda: F.rms_norm(x, (D,), s, eps))
-        return {
-            "max_abs_err": max_abs(rmsnorm(x, s, eps), rmsnorm_ref(x.float(), s, eps)),
-            "ms": time_ms(lambda: rmsnorm(x, s, eps)),
-            "plain_ms": time_ms(lambda: rmsnorm_ref(x, s, eps)),
-            "device_ms": kernel_device_ms(lambda: rmsnorm(x, s, eps), "rmsnorm_kernel"),
-            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
-            "library_ms": lib, "shape": list(shape), "dtype": "bfloat16"}
-
     # RMSNorm at danube's serving tick (4 slots x a 16-token chunk, d_model
     # 2560), and at mamba2's, which makes most of the launches: the gated
     # norm of every ssd_decode step (4 slots, d_inner 3072) and norm1 of a
     # 16-token tick (d_model 1536)
+    shapes = [((4, 16, cfg.d_model), cfg.norm_eps),
+              ((4, ssm_cfg.ssm_d_inner), ssm_cfg.norm_eps),
+              ((4, 16, ssm_cfg.d_model), ssm_cfg.norm_eps)]
+    inputs = [rmsnorm_inputs(gen, shape) for shape, _ in shapes]
+    # kernel and F.rms_norm in alternating windows ("ms", "library_ms" and
+    # the per-round ratio's median and spread), all three before this
+    # run's first profiler session, then the gated norm's pair again after
+    # the sessions that read device_ms
+    pairs = [rmsnorm_vs_library(x, s, eps) for (x, s), (_, eps) in zip(inputs, shapes)]
+    rms = []
+    for (x, s), (shape, eps), pair in zip(inputs, shapes, pairs):
+        nbytes = 2 * x.numel() * x.element_size() + s.numel() * s.element_size()
+        rms.append({
+            "max_abs_err": max_abs(rmsnorm(x, s, eps), rmsnorm_ref(x.float(), s, eps)),
+            **pair,
+            "plain_ms": time_ms(lambda: rmsnorm_ref(x, s, eps)),
+            "device_ms": kernel_device_ms(lambda: rmsnorm(x, s, eps), "rmsnorm_kernel"),
+            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+            "shape": list(shape), "dtype": "bfloat16"})
+    after = rmsnorm_vs_library(*inputs[1], shapes[1][1])
+    log(f"[rmsnorm after profiler] {list(shapes[1][0])} bf16, after "
+        f"{len(shapes)} profiler sessions: {json.dumps(after)}")
     out = [{
         "name": "rmsnorm", "route": "cuda",
         "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm/rmsnorm.py:24",
-        **rmsnorm_at((4, 16, cfg.d_model), cfg.norm_eps),
-        "by_shape": [
-            {"use": f"{SSM_ARCH} gated norm, every ssd_decode step",
-             **rmsnorm_at((4, ssm_cfg.ssm_d_inner), ssm_cfg.norm_eps)},
-            {"use": f"{SSM_ARCH} norm1, a 16-token tick",
-             **rmsnorm_at((4, 16, ssm_cfg.d_model), ssm_cfg.norm_eps)}]}]
+        **rms[0],
+        "by_shape": [{"use": f"{SSM_ARCH} gated norm, every ssd_decode step", **rms[1]},
+                     {"use": f"{SSM_ARCH} norm1, a 16-token tick", **rms[2]}]}]
 
     # flash attention at the 2048-token prefill of danube in bf16 (the
     # tensor-core kernel) and f32 (the scalar kernel), and at hymba's
@@ -706,28 +800,48 @@ def phase_kernel_times(gen):
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
         t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
-        lib = None
+        qt = q.transpose(1, 2).contiguous()
         if W == 0 or W >= S:      # the window does not bind: plain causal SDPA
-            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            lib = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True))
+            kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+
+            def library():
+                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                      enable_gqa=True)
+            how = "is_causal, enable_gqa"
         else:
-            log(f"[kernels] flash {dtype} S={S} window={W}: library_ms null, "
-                f"scaled_dot_product_attention has no sliding window but an "
-                f"explicit mask, which would run another kernel")
+            # the window binds: an additive band mask of q's dtype, built
+            # once, and k/v repeated to H heads beforehand (kv head h // G)
+            kt, vt = (t.transpose(1, 2).repeat_interleave(H // K, dim=1).contiguous()
+                      for t in (k, v))
+            i = torch.arange(S, device=DEVICE)
+            band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - W)
+            mask = torch.zeros(S, S, device=DEVICE, dtype=dtype).masked_fill(
+                ~band, float("-inf"))
+
+            def library():
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+            how = "additive band mask, k/v repeated to H heads"
+        ref = attention_ref(q, k, v, causal=True, window=W)
+        # the library call computes the same function (a wrong mask is off
+        # by far more than one bf16 step)
+        lib_err = max_abs(library().transpose(1, 2), ref)
+        check(lib_err <= BF16_TOL,
+              f"SDPA ({how}) at {[B, S, H, K, d]} window {W} {dtype}: {lib_err}")
         name = "flash_fwd_mma_kernel" if dtype == torch.bfloat16 else "flash_fwd_kernel"
-        reps, inner = (15, 10) if dtype == torch.bfloat16 else (9, 3)
         return {
-            "max_abs_err": max_abs(flash_attention(q, k, v, True, W),
-                                   attention_ref(q, k, v, causal=True, window=W)),
-            "ms": time_ms(lambda: flash_attention(q, k, v, True, W), reps=reps, inner=inner),
+            "max_abs_err": max_abs(flash_attention(q, k, v, True, W), ref),
+            "ms": time_ms(lambda: flash_attention(q, k, v, True, W)),
             "plain_ms": time_ms(lambda: attention_ref(q, k, v, causal=True, window=W),
                                 reps=9, inner=3),
             "device_ms": kernel_device_ms(lambda: flash_attention(q, k, v, True, W),
                                           name, n=5),
             "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops > t_bytes else "bytes",
-            "library_ms": lib, "kernel": name, "shape": [B, S, H, K, d],
+            "library_ms": time_ms(library),
+            "library_call": f"scaled_dot_product_attention ({how})",
+            "library_kernels": device_kernels(library)[:3],
+            "library_max_abs_err": lib_err,
+            "kernel": name, "shape": [B, S, H, K, d],
             "dtype": str(dtype).replace("torch.", ""), "window": W, "flops": flops}
 
     danube = (1, 2048, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
@@ -803,6 +917,7 @@ def main() -> int:
         f"{torch.cuda.device_count()} device(s)")
     phase_build()
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    phase_rmsnorm_fresh(gen)
     phase_rmsnorm(gen)
     phase_flash(gen)
     phase_ssd(gen)

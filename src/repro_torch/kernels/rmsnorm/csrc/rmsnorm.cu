@@ -31,6 +31,7 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
 
 namespace {
@@ -175,6 +176,11 @@ struct RmsnormArgs {
   int w_dtype;              // 0 = float32, 1 = bfloat16
   float eps;
 };
+// rmsnorm.py packs this layout by hand; tests/test_torch_kernels.py reads
+// these three numbers and holds the Python struct to them.
+static_assert(sizeof(RmsnormArgs) == 64, "RmsnormArgs: 64 bytes, as \"<5q4if4x\"");
+static_assert(offsetof(RmsnormArgs, rows) == 40, "RmsnormArgs: rows at byte 40");
+static_assert(offsetof(RmsnormArgs, eps) == 56, "RmsnormArgs: eps at byte 56");
 
 // x: rows of D elements, row stride x_rs elements, last dimension
 // contiguous; y: rows of D contiguous elements; w: D contiguous elements.

@@ -106,8 +106,14 @@ def flash_checked(q, k, v, causal, window):
     torch.cuda.synchronize()
     assert launch_counts()["flash_attention"] == before + 1
     assert out.dtype == q.dtype and out.shape == q.shape
-    ref = attention_ref(q, k, v, causal=causal, window=window)
-    return float((out.float() - ref.float()).abs().max())
+    # the plain version in f32; cast to q's dtype it is attention_ref(q, k, v).
+    # Per row, the largest error over the row's RMS: late rows average many
+    # keys, and their small outputs would hide a fault under the absolute
+    # bound (the reasoning of chip_smoke.py's FLASH_ROW_REL_TOL)
+    ref = attention_ref(q.float(), k.float(), v.float(), causal=causal, window=window)
+    row = (out.float() - ref).abs().amax(-1) / ref.pow(2).mean(-1).sqrt()
+    assert float(row.max()) <= (1e-4 if q.dtype == torch.float32 else 5e-2)
+    return float((out.float() - ref.to(q.dtype).float()).abs().max())
 
 
 @pytest.mark.gpu

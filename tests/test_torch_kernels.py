@@ -13,6 +13,7 @@ Python and is tested here on CPU tensors.
 import importlib
 import pkgutil
 import re
+import struct
 import sys
 from pathlib import Path
 
@@ -34,7 +35,7 @@ from repro_torch.kernels.flash_attention.flash_attention import (aligned_inputs,
                                                                  cp_async_ready)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
-from repro_torch.kernels.rmsnorm.rmsnorm import row_stride
+from repro_torch.kernels.rmsnorm.rmsnorm import _ARGS, SOURCE as RMSNORM_SOURCE, row_stride
 from repro_torch.kernels.ssd_scan.ops import ssd_chunk
 
 SRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
@@ -186,6 +187,20 @@ def test_flash_alignment_decision(make_view, ready):
         assert got is t
     else:
         assert got.is_contiguous() and torch.equal(got, t) and cp_async_ready(got)
+
+
+def test_rmsnorm_launch_struct_matches_the_source():
+    """The Python struct of the launch's arguments has the size and the
+    field offsets that the CUDA source's static_asserts pin RmsnormArgs to."""
+    src = RMSNORM_SOURCE.read_text()
+    pinned = {m[0]: int(m[1]) for m in re.findall(
+        r"static_assert\((?:sizeof\(RmsnormArgs\)|offsetof\(RmsnormArgs, (\w+)\)) == (\d+)",
+        src)}
+    assert pinned == {"": 64, "rows": 40, "eps": 56}
+    assert _ARGS.size == pinned[""]
+    packed = _ARGS.pack(1, 2, 3, 4, 5, 6, 7, 8, 9, 0.5)
+    assert struct.unpack_from("<i", packed, pinned["rows"])[0] == 6
+    assert struct.unpack_from("<f", packed, pinned["eps"])[0] == 0.5
 
 
 def test_tensor_from_numpy_defaults_to_the_gpu(monkeypatch):

@@ -18,7 +18,10 @@ from a seed), in phases:
   4. flash-attention kernels vs their plain version (bf16 on tensor
      cores, f32 scalar; danube's, hymba's and other shapes; a misaligned
      bf16 view) and the gradient;
-  4b. SSD-chunk kernel vs its plain version;
+  4b. SSD-chunk kernels (C.B^T once per chunk, then every head's block,
+     3xTF32 on tensor cores) vs their plain version: the JAX tests'
+     shapes and property-test shapes, model shapes, misaligned views
+     (each also bit-equal to the kernels' output on an aligned copy);
   5. danube in f32: prefill with the flash kernel vs the dense path,
      ServeEngine chunked-prefill first-token logits vs prefill, and a
      request's greedy tokens alone vs beside staggered others;
@@ -28,8 +31,10 @@ from a seed), in phases:
      CPU (plain), ServeEngine first-token logits (sequential SSD
      decode) vs prefill (chunked, kernel), staggered joins, and a
      recycled slot vs fresh engines;
-  9. mamba2 serving in bf16 through the Router: the mix of phase 6;
-     then the profile of its serving ticks;
+  9. mamba2 serving in bf16 through the Router: the mix of phase 6,
+     after a checked 2048-token bf16 lm.prefill, a second one timed by
+     CUDA events and a third under torch.profiler (the SSD kernels'
+     share of its device time); then the profile of its serving ticks;
   10. hymba in f32: prefill with the flash and SSD kernels vs the dense
      attention path;
   11. the kernels line: launches on the three paths (phases 5-6, the
@@ -38,7 +43,10 @@ from a seed), in phases:
      read just after, and each kernel's time at its paths' shapes
      (taken after phase 4b) beside its plain version, a PyTorch library
      call computing the same function where there is one, its bound and
-     its own device time (a missing profiler record fails the run).
+     its own device time, summed over every CUDA kernel its wrapper
+     launches (a missing profiler record fails the run); for the SSD
+     chunk also its kernels' registers and local memory as the CUDA
+     runtime reports them, and mamba2's timed prefill.
 
 Any failed check raises, so the exit code is non-zero and no result
 line is printed. Without a CUDA device the script exits with code 1
@@ -66,6 +74,7 @@ HYBRID_ARCH = "hymba-1.5b"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12          # H100 SXM dense TF32 tensor-core peak
 F32_TOL, BF16_TOL = 2e-5, 2e-2     # kernel vs plain, as tests/test_kernels.py
 # flash vs its plain version in f32, per output row: the row's largest
 # error over the row's RMS. Late rows average thousands of keys, so their
@@ -158,12 +167,12 @@ def kernel_events(prof):
     return out
 
 
-def kernel_device_ms(fn, kernel: str, n: int = 20) -> float:
-    """Median device duration of the one kernel named ``kernel`` that
-    ``fn`` launches, over the launches torch.profiler recorded; raises
-    when it recorded none. The median of the kernel's own records, not a
-    sum over the window divided by ``n``, so a record the profiler drops
-    cannot shrink the time."""
+def kernel_device_ms_by_name(fn, kernels, n: int = 20) -> dict:
+    """Median device duration of each kernel in ``kernels`` (names) that
+    one call of ``fn`` launches, over the launches torch.profiler
+    recorded; raises when it recorded none of one of them. The median of
+    each kernel's own records, not a sum over the window divided by
+    ``n``, so a record the profiler drops cannot shrink the time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -172,10 +181,19 @@ def kernel_device_ms(fn, kernel: str, n: int = 20) -> float:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    us = [e.device_time_total for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
-    check(bool(us), f"torch.profiler recorded no device activity named {kernel!r}")
-    return statistics.median(us) / 1e3
+    out = {}
+    for kernel in kernels:
+        us = [e.device_time_total for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+        check(bool(us), f"torch.profiler recorded no device activity named {kernel!r}")
+        out[kernel] = statistics.median(us) / 1e3
+    return out
+
+
+def kernel_device_ms(fn, kernel: str, n: int = 20) -> float:
+    """Median device duration of the one kernel named ``kernel`` that
+    ``fn`` launches (:func:`kernel_device_ms_by_name`)."""
+    return kernel_device_ms_by_name(fn, (kernel,), n)[kernel]
 
 
 def device_kernels(fn) -> list:
@@ -295,7 +313,7 @@ def phase_flash(gen):
     version; the bf16 kernel rounds P to bf16 for P.V, which the bf16
     tolerance covers."""
     import torch
-    from repro_torch.kernels.flash_attention.flash_attention import cp_async_ready
+    from repro_torch.kernels.cp_async import cp_async_ready
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
     cases = []
@@ -347,10 +365,11 @@ def phase_flash(gen):
         f"worst row error / row RMS {worst_row}; dq err {gerr:.3g}")
 
 
-def ssd_inputs(gen, b, nc, Q, N, H, P, x_dtype, model_like):
+def ssd_inputs(gen, b, nc, Q, N, H, P, x_dtype, model_like, da_scale=0.1):
     """The distribution of tests/test_kernels.py (unit normals,
-    dt = softplus(n), da = -|n| * 0.1) or, with ``model_like``, mamba2's
-    init decays da = dt * A with A = -linspace(1, 16, H)."""
+    dt = softplus(n), da = -|n| * da_scale: 0.1 in its fixed cases, 0.05
+    in its property test) or, with ``model_like``, mamba2's init decays
+    da = dt * A with A = -linspace(1, 16, H)."""
     import torch
     import torch.nn.functional as F
     C = torch.randn(b, nc, Q, N, device=DEVICE, generator=gen)
@@ -360,7 +379,7 @@ def ssd_inputs(gen, b, nc, Q, N, H, P, x_dtype, model_like):
     if model_like:
         da = dt * -torch.linspace(1.0, 16.0, H, device=DEVICE)
     else:
-        da = -torch.randn(b, nc, Q, H, device=DEVICE, generator=gen).abs() * 0.1
+        da = -torch.randn(b, nc, Q, H, device=DEVICE, generator=gen).abs() * da_scale
     return C, B, x, dt, da
 
 
@@ -376,8 +395,12 @@ def phase_ssd(gen):
     import torch
     from repro_torch.kernels.ssd_scan.ops import ssd_chunk
     from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref
+    from repro_torch.kernels.cp_async import cp_async_ready
     # the JAX tests' shapes and distribution, at their abs bound
     test_cases = [(2, 3, 16, 8, 4, 16), (1, 2, 32, 16, 2, 8), (1, 1, 64, 32, 3, 16)]
+    # the JAX property test's shapes (b 1, nc 2, H 2, da scale 0.05): N 4
+    # and 8, P 8 and 16 are padded to 16 inside the kernel
+    prop_cases = [(1, 2, Q, N, 2, P) for Q in (8, 16, 32) for N in (4, 8) for P in (8, 16)]
     # mamba2 (Q = 256, and 100 for a 100-token prompt) and hymba, at their
     # init's decays, at a relative bound
     model_cases = [(1, 2, 256, 128, 48, 64), (1, 1, 100, 128, 48, 64),
@@ -396,8 +419,42 @@ def phase_ssd(gen):
                     check(ab <= SSD_TOL, f"ssd {shape} {x_dtype}: {ab} > {SSD_TOL}")
                 key = f"{x_dtype} {'model-like rel' if model_like else 'test abs'}"
                 worst[key] = max(worst.get(key, 0.0), rel if model_like else ab)
-    log(f"[ssd] {2 * (len(test_cases) + len(model_cases))} cases vs plain ok; "
-        f"max err {worst}")
+        for shape in prop_cases:
+            ins = ssd_inputs(gen, *shape, x_dtype, False, da_scale=0.05)
+            ab, _ = ssd_errs(ssd_chunk(*ins), ssd_chunk_ref(*ins))
+            check(ab <= SSD_TOL, f"ssd property shape {shape} {x_dtype}: {ab} > {SSD_TOL}")
+            key = f"{x_dtype} property abs"
+            worst[key] = max(worst.get(key, 0.0), ab)
+    # a bf16 x whose token stride (H * P + 4 elements) is off the 16-byte
+    # grid: the wrapper copies it for the kernels' 16-byte copies, so the
+    # output must be bit-equal to the output on an aligned contiguous copy
+    # of x. At a JAX test's shape (abs bound), at mamba2's with its init's
+    # decays (rel bound) and at mamba2's with the JAX tests' distribution
+    # (rel bound: the JAX tests stop at Q = 64, and at Q = 256 that
+    # distribution's outputs reach ~3e2, where an abs 1e-4 is about 2^-21 of them)
+    for (b, nc, Q, N, H, P), model_like, rel_bound in (
+            ((1, 2, 64, 32, 4, 16), False, False), ((1, 2, 256, 128, 8, 64), True, True),
+            ((1, 2, 256, 128, 8, 64), False, True)):
+        C, B, _, dt, da = ssd_inputs(gen, b, nc, Q, N, H, P, torch.float32, model_like)
+        base = torch.randn(b, nc * Q, H * P + 4, device=DEVICE,
+                           generator=gen).to(torch.bfloat16)
+        x = base[..., :H * P].reshape(b, nc, Q, H, P)
+        check(not cp_async_ready(x), "the misaligned x view passes the cp.async check")
+        xc = x.contiguous()
+        check(cp_async_ready(xc), "the contiguous copy fails the cp.async check")
+        out = ssd_chunk(C, B, x, dt, da)
+        check(all(torch.equal(o, a) for o, a in zip(out, ssd_chunk(C, B, xc, dt, da))),
+              f"ssd misaligned bf16 x view, Q {Q}: output differs from the aligned copy's")
+        ab, rel = ssd_errs(out, ssd_chunk_ref(C, B, x, dt, da))
+        key = f"bf16 misaligned x view, Q {Q}, {'model-like' if model_like else 'test'}"
+        if rel_bound:
+            check(rel <= SSD_REL_TOL, f"ssd {key}: rel err {rel} > {SSD_REL_TOL}")
+            worst[key + " rel"] = rel
+        else:
+            check(ab <= SSD_TOL, f"ssd {key}: {ab} > {SSD_TOL}")
+            worst[key + " abs"] = ab
+    n = 2 * (len(test_cases) + len(model_cases) + len(prop_cases)) + 3
+    log(f"[ssd] {n} cases vs plain ok; max err {worst}")
 
 
 def capture_logits(engine, sink, widths=None):
@@ -594,7 +651,9 @@ def phase_hybrid_f32(rng):
 def phase_serve_bf16(rng, arch):
     """Serving in bf16 through the Router: 8 requests, prompts uniform in
     64-512 tokens, 32 new tokens, 4 slots, chunk 16, max_len 1024; before
-    it, a bf16 2048-token lm.prefill."""
+    it, a bf16 2048-token lm.prefill and, for the ssm family, two more on
+    the same prompt (:func:`prefill_timing`). Returns the config, the
+    parameters and the prefill timing (None for other families)."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import launch_counts
@@ -612,10 +671,13 @@ def phase_serve_bf16(rng, arch):
     with torch.no_grad():
         lk, _ = lm.prefill(cfg, params, {"tokens": toks}, attention_impl="kernel")
     check(bool(torch.isfinite(lk.float()).all()), "bf16 prefill logits not finite")
+    prefill = None
     if cfg.family == "ssm":
         n_ssd = launch_counts()["ssd_chunk"] - before["ssd_chunk"]
         check(n_ssd == cfg.num_layers, f"bf16 prefill made {n_ssd} SSD launches, "
                                        f"not {cfg.num_layers}")
+        prefill = prefill_timing(cfg, params, toks)
+        log(f"[prefill bf16] {cfg.name}: {json.dumps(prefill)}")
 
     slo = SloTracker()
     router = Router(slo, max_queue_per_replica=8)
@@ -654,7 +716,7 @@ def phase_serve_bf16(rng, arch):
              "p50_tpot_ms": snap["p50_tpot_ms"], "p95_tpot_ms": snap["p95_tpot_ms"],
              "rmsnorm_launches_serving": norms}
     log(f"[serve bf16] {json.dumps(stats)}")
-    return cfg, params
+    return cfg, params, prefill
 
 
 def phase_profile(cfg, params, rng):
@@ -862,18 +924,26 @@ def phase_kernel_times(gen):
     # the SSD chunk at mamba2's 2048-token prefill: x bf16, the rest f32,
     # the decays of mamba2's init. Least work: C.B^T once per chunk and,
     # per (chunk, head), (C.B^T o L).xdt on the causal triangle (j <= i)
-    # and the (N, P) state; f32 outside the tensor cores (the kernel's
-    # contract is f32; TF32 would change its precision).
+    # and the (N, P) state. The kernels run it as 3xTF32 on tensor cores,
+    # at 495 TFLOP/s: three TF32 passes for C.B^T, and for the two
+    # products with x three for an f32 x but two for a bf16 x, which is
+    # exact in TF32 (its small part is 0). Beside that bound, the bytes
+    # alone and the f32 CUDA-core bound of the kernel's first version.
     Q, N = ssm_cfg.ssm_chunk, ssm_cfg.ssm_state
     H, P = ssm_cfg.ssm_num_heads, ssm_cfg.ssm_head_dim
     b, nc = 1, 2048 // Q
     ins = ssd_inputs(gen, b, nc, Q, N, H, P, torch.bfloat16, model_like=True)
     ab, rel = ssd_errs(ssd_chunk(*ins), ssd_chunk_ref(*ins))
     tri = Q * (Q + 1) // 2
-    flops = 2 * b * nc * (tri * N + H * (tri * P + Q * N * P))
+    flops_cb = 2 * b * nc * tri * N
+    flops_x = 2 * b * nc * H * (tri * P + Q * N * P)
+    flops = flops_cb + flops_x
+    x_passes = 2 if ins[2].dtype == torch.bfloat16 else 3
+    tf32_flops = 3 * flops_cb + x_passes * flops_x
     nbytes = (sum(t.numel() * t.element_size() for t in ins)
               + 4 * b * nc * H * (Q * P + N * P + 1))         # y_diag, states, decays
-    t_ops, t_bytes = flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    t_ops, t_bytes = tf32_flops / TF32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    by_kernel = kernel_device_ms_by_name(lambda: ssd_chunk(*ins), SSD_KERNELS, n=10)
     out.append({
         "name": "ssd_chunk", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_chunk.cu",
@@ -881,12 +951,67 @@ def phase_kernel_times(gen):
         "max_abs_err": ab, "max_rel_err": rel,
         "ms": time_ms(lambda: ssd_chunk(*ins), reps=9, inner=5),
         "plain_ms": time_ms(lambda: ssd_chunk_ref(*ins), reps=9, inner=3),
-        "device_ms": kernel_device_ms(lambda: ssd_chunk(*ins), "ssd_chunk_kernel", n=10),
+        "device_ms": sum(by_kernel.values()), "device_ms_by_kernel": by_kernel,
         "bound_ms": 1e3 * max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops > t_bytes else "bytes",
+        "bound_note": f"3xTF32 at 495 TFLOP/s TF32: 3 passes for C.B^T, {x_passes} for "
+                      f"the products with x",
+        "bound_ops_ms": 1e3 * t_ops, "bound_bytes_ms": 1e3 * t_bytes,
+        "bound_f32_cuda_core_ms": 1e3 * max(flops / F32_FLOPS_PER_S, t_bytes),
         "library_ms": None, "shape": [b, nc, Q, N, H, P],
-        "dtype": "x bfloat16, C/B/dt/da float32", "flops": flops, "bytes": nbytes})
+        "dtype": "x bfloat16, C/B/dt/da float32", "flops": flops,
+        "tf32_pass_flops": tf32_flops, "bytes": nbytes, "kernel_attrs": ssd_kernel_attrs()})
     return out
+
+
+# the kernels one SSD call launches, by the names the profiler gives them
+SSD_KERNELS = ("ssd_cb_kernel", "ssd_chunk_kernel")
+
+
+def ssd_kernel_attrs() -> dict:
+    """Registers and local memory (spills and stack) per thread of the SSD
+    kernels, as the CUDA runtime reports them for the library this run
+    loaded."""
+    from repro_torch.kernels.ssd_scan.ssd_scan import kernel_attrs
+    out = kernel_attrs()
+    check(all(a["registers"] > 0 for a in out.values()), f"SSD kernel attributes: {out}")
+    return out
+
+
+def prefill_timing(cfg, params, toks) -> dict:
+    """A bf16 lm.prefill timed by CUDA events (and the host clock), then
+    one more under torch.profiler: its device time, and the SSD kernels'
+    share of it (each SSD kernel must be recorded once per layer)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import lm
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        start.record()
+        lm.prefill(cfg, params, {"tokens": toks}, attention_impl="kernel")
+        end.record()
+    end.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    ms = start.elapsed_time(end)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with torch.no_grad():
+            lm.prefill(cfg, params, {"tokens": toks}, attention_impl="kernel")
+        torch.cuda.synchronize()
+    evs = kernel_events(prof)
+    device = sum(us for *_, us in evs) / 1e3
+    ssd = {name: [(c, us / 1e3) for k, c, us in evs if name in k] for name in SSD_KERNELS}
+    for name, recs in ssd.items():
+        calls = sum(c for c, _ in recs)
+        check(calls == cfg.num_layers, f"prefill profile: {calls} records of {name}, "
+                                       f"not {cfg.num_layers}")
+    ssd_ms = sum(us for recs in ssd.values() for _, us in recs)
+    return {"tokens": toks.shape[1], "ms": ms, "wall_ms": wall,
+            "profiled_device_ms": device, "ssd_device_ms": ssd_ms,
+            "ssd_device_ms_by_kernel": {k: sum(us for _, us in v) for k, v in ssd.items()},
+            "ssd_share_of_device": ssd_ms / device, "ssd_share_of_ms": ssd_ms / ms}
 
 
 def kernels_line(times, paths):
@@ -927,7 +1052,7 @@ def main() -> int:
     paths = {}
     reset_launch_counts()                      # the dense path: phases 5-6
     phase_model_f32(rng)
-    cfg, params = phase_serve_bf16(rng, ARCH)
+    cfg, params, _ = phase_serve_bf16(rng, ARCH)
     paths["dense"] = launch_counts()
     log(f"[dense path] kernel launches in phases 5-6: {paths['dense']}")
     # one flash launch per layer in each of the f32 and bf16 prefills;
@@ -942,12 +1067,14 @@ def main() -> int:
 
     reset_launch_counts()                      # the ssm path: phases 8-9
     phase_ssm_f32(rng)
-    ssm_cfg, params = phase_serve_bf16(rng, SSM_ARCH)
+    ssm_cfg, params, prefill = phase_serve_bf16(rng, SSM_ARCH)
     paths["ssm"] = launch_counts()
     log(f"[ssm path] kernel launches in phases 8-9: {paths['ssm']}")
     # mamba2 is attention-free; one SSD launch per layer in each of the
-    # f32 and bf16 prefills, and one for the layer-0 check on the card
-    want_ssd = 2 * ssm_cfg.num_layers + 1
+    # f32 prefill and the three bf16 prefills (checked, timed by events,
+    # profiled: prefill_timing adds the last two), and one for the layer-0
+    # check on the card
+    want_ssd = 4 * ssm_cfg.num_layers + 1
     check(paths["ssm"]["flash_attention"] == 0 and paths["ssm"]["rmsnorm"] > 0
           and paths["ssm"]["ssd_chunk"] == want_ssd,
           f"ssm path launches {paths['ssm']}: want no flash, {want_ssd} SSD")
@@ -957,6 +1084,9 @@ def main() -> int:
 
     paths["hybrid"] = phase_hybrid_f32(rng)    # the hybrid path: phase 10
 
+    for e in times:
+        if e["name"] == "ssd_chunk":
+            e[f"{SSM_ARCH}_prefill_bf16"] = prefill
     kernels = kernels_line(times, paths)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)

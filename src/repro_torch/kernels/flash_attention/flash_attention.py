@@ -9,8 +9,8 @@ The library holds two kernels, chosen by dtype: bf16 inputs go to the
 tensor-core kernel, f32 inputs to the scalar one. The bf16 kernel copies
 tiles with 16-byte ``cp.async``, so each bf16 input must start on a
 16-byte boundary and step through batch, sequence and heads by whole
-16-byte units; :func:`cp_async_ready` decides that, and an input that
-fails it is handed to the kernel as a contiguous copy.
+16-byte units; :func:`..cp_async.cp_async_ready` decides that, and an
+input that fails it is handed to the kernel as a contiguous copy.
 """
 
 from __future__ import annotations
@@ -18,20 +18,18 @@ from __future__ import annotations
 import ctypes
 import math
 from pathlib import Path
-from typing import Tuple
 
 import torch
 
 from ..build import load_library
+from ..cp_async import aligned_input
 
-__all__ = ["flash_attention_fwd", "cp_async_ready", "aligned_inputs", "HEAD_DIMS",
-           "SOURCE"]
+__all__ = ["flash_attention_fwd", "HEAD_DIMS", "SOURCE"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 HEAD_DIMS = (64, 80, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT32_MAX = 2**31 - 1
-_CP_ASYNC_BYTES = 16
 
 _FN = None
 
@@ -48,31 +46,12 @@ def _entry():
     return _FN
 
 
-def cp_async_ready(t: torch.Tensor) -> bool:
-    """Whether the bf16 kernel's 16-byte copies can read ``t`` (B, S, H, d)
-    in place: its first element on a 16-byte boundary and its batch,
-    sequence and head strides whole multiples of 16 bytes. The stride of
-    a dimension of size 1 is never stepped, so it is not looked at."""
-    size = t.element_size()
-    return t.data_ptr() % _CP_ASYNC_BYTES == 0 and all(
-        (s * size) % _CP_ASYNC_BYTES == 0
-        for n, s in zip(t.shape[:3], t.stride()[:3]) if n != 1)
-
-
-def aligned_inputs(*ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """Each input as it is if :func:`cp_async_ready`, else a contiguous
-    copy of it in fresh (aligned) memory: ``.contiguous()`` would hand
-    back a contiguous view that starts off a 16-byte boundary as it is."""
-    return tuple(t if cp_async_ready(t) else t.clone(memory_format=torch.contiguous_format)
-                 for t in ts)
-
-
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0) -> torch.Tensor:
     """Launch the kernel. q: (B,S,H,d); k,v: (B,S,K,d) -> (B,S,H,d) in
     q's dtype. Inputs may be strided views; the head dimension must be
     contiguous. bf16 views that the tensor-core kernel cannot read in
-    place are copied first (:func:`aligned_inputs`)."""
+    place are copied first (:func:`..cp_async.aligned_input`)."""
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention_fwd needs q, k, v on one CUDA device")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -89,7 +68,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("the head dimension of q, k, v must be contiguous")
     if q.dtype == torch.bfloat16:
-        q, k, v = aligned_inputs(q, k, v)
+        q, k, v = (aligned_input(t) for t in (q, k, v))
     out = torch.empty((B, S, H, d), dtype=q.dtype, device=q.device)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     if max(strides) > _INT32_MAX or max(t.numel() for t in (q, k, out)) > _INT32_MAX:

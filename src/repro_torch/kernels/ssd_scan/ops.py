@@ -1,9 +1,15 @@
 """Dispatching SSD intra-chunk wrapper with a launch counter.
 
 CPU tensors take the plain version (:func:`.ref.ssd_chunk_ref`); CUDA
-tensors launch the CUDA kernel, and anything else raises. There is no
-fallback from the kernel to the plain version, and no backward: neither
+tensors launch the CUDA kernels, and anything else raises. There is no
+fallback from the kernels to the plain version, and no backward: neither
 the JAX package nor the port has a backward kernel for this block.
+
+One call on the card launches two kernels, ``ssd_cb_kernel`` (C·Bᵀ once
+per chunk) and then ``ssd_chunk_kernel`` (y_diag, states and decays for
+every head), and ``launches`` counts it once: it counts calls of the
+port's SSD kernel, the counterpart of one ``ssd_chunk_fwd`` of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ from .ssd_scan import ssd_chunk_fwd
 
 __all__ = ["ssd_chunk", "launches"]
 
-# Kernel launches through this wrapper (not plain-version calls).
+# Kernel calls through this wrapper, one per call (not plain-version calls).
 launches = 0
 
 

@@ -7,8 +7,9 @@ a GPU machine that has only PyTorch:
   PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances are those of ``test_kernels.py``: 2e-5 in f32, 2e-2 in bf16
-(and in f16), and 1e-4 for the SSD chunk; at mamba2-like decays the SSD chunk is held
-to a relative bound (see ``ssd_inputs``).
+(and in f16), and 1e-4 for the SSD chunk (3xTF32 on tensor cores; see
+its source); at mamba2-like decays the SSD chunk is held to a relative
+bound (see ``ssd_inputs``).
 """
 
 import pytest
@@ -183,9 +184,9 @@ def test_flash_gradient_through_the_kernel(cuda):
     assert float((q1.grad - q2.grad).abs().max()) < 1e-4
 
 
-def ssd_inputs(dev, b, nc, Q, N, H, P, model_like=False, seed=0):
+def ssd_inputs(dev, b, nc, Q, N, H, P, model_like=False, seed=0, da_scale=0.1):
     """``test_kernels.py``'s distribution (unit normals, dt = softplus(n),
-    da = -|n| * 0.1), or with ``model_like`` mamba2's init decays
+    da = -|n| * da_scale), or with ``model_like`` mamba2's init decays
     da = dt * A, A = -linspace(1, 16, H): there cum reaches -1e3 at
     Q = 256, where cum_i - cum_j carries ~1e-4 relative noise between two
     summation orders of the same f32 sums."""
@@ -197,7 +198,7 @@ def ssd_inputs(dev, b, nc, Q, N, H, P, model_like=False, seed=0):
     if model_like:
         da = dt * -torch.linspace(1.0, 16.0, H, device=dev)
     else:
-        da = -torch.randn(b, nc, Q, H, device=dev, generator=g).abs() * 0.1
+        da = -torch.randn(b, nc, Q, H, device=dev, generator=g).abs() * da_scale
     return C, B, x, dt, da
 
 
@@ -228,16 +229,69 @@ def test_ssd_kernel_matches_plain_at_the_jax_test_shapes(cuda, dtype, b, nc, Q, 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Q", [8, 16, 32])
+@pytest.mark.parametrize("N", [4, 8])
+@pytest.mark.parametrize("P", [8, 16])
+def test_ssd_kernel_matches_plain_at_the_jax_property_shapes(cuda, dtype, Q, N, P):
+    """The shapes of test_kernels.py's property test (b 1, nc 2, H 2,
+    da = -|n| * 0.05): N = 4 and 8 and P = 8 are padded to 16 inside the
+    kernel, Q <= 32 is a part of one 64-row tile."""
+    C, B, x, dt, da = ssd_inputs(cuda, 1, 2, Q, N, 2, P, seed=Q * N * P, da_scale=0.05)
+    x = x.to(dtype)
+    out = ssd_chunk(C, B, x, dt, da)
+    torch.cuda.synchronize()
+    assert out[0].shape == (1, 2, Q, 2, P) and out[1].shape == (1, 2, 2, N, P)
+    assert ssd_err(out, ssd_chunk_ref(C, B, x, dt, da), relative=False) < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("view", ["offset", "token_stride", "narrow_rows"])
+def test_ssd_kernel_copies_misaligned_views(cuda, view):
+    """A bf16 x whose first element is off a 16-byte boundary, or whose
+    token stride (H * P + 4 elements) is not a multiple of 16 bytes, and
+    C, B of N = 2 (rows 8 bytes apart): the wrapper copies them, the
+    kernels agree with the plain version, and their output is bit-equal
+    to their output on an aligned contiguous copy of x."""
+    from repro_torch.kernels.cp_async import cp_async_ready
+    b, nc, Q, N, H, P = 1, 2, 64, 2 if view == "narrow_rows" else 32, 4, 16
+    C, B, x, dt, da = ssd_inputs(cuda, b, nc, Q, N, H, P, seed=7)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    base = torch.randn(b, nc * Q, H * P + 4, device=cuda, generator=g).to(torch.bfloat16)
+    if view == "offset":
+        x = base[..., 1:H * P + 1].reshape(b, nc, Q, H, P)
+    else:
+        x = base[..., :H * P].reshape(b, nc, Q, H, P)
+    assert not (cp_async_ready(x) and cp_async_ready(C))
+    out = ssd_chunk(C, B, x, dt, da)
+    ref = ssd_chunk_ref(C, B, x, dt, da)
+    assert ssd_err(out, ref, relative=False) < 1e-4
+    aligned = ssd_chunk(C, B, x.contiguous(), dt, da)
+    assert all(torch.equal(o, a) for o, a in zip(out, aligned))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Q,N,H,P", [(256, 128, 48, 64), (100, 128, 48, 64),
-                                     (256, 16, 50, 64)])
+                                     (256, 16, 50, 64), (128, 64, 6, 32), (128, 64, 6, 48)])
 def test_ssd_kernel_matches_plain_at_model_shapes(cuda, dtype, Q, N, H, P):
     """mamba2-780m (N=128, H=48, P=64; Q=100 is a 100-token prompt) and
-    hymba-1.5b (N=16, H=50) with their init's decays."""
+    hymba-1.5b (N=16, H=50) with their init's decays; and heads of P = 32
+    and 48, which the kernel's 64-column x tiles hold zero-padded."""
     C, B, x, dt, da = ssd_inputs(cuda, 1, 2, Q, N, H, P, model_like=True)
     x = x.to(dtype)
     out = ssd_chunk(C, B, x, dt, da)
     torch.cuda.synchronize()
     assert ssd_err(out, ssd_chunk_ref(C, B, x, dt, da), relative=True) < 1e-3
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_attrs_reports_every_kernel(cuda):
+    """The runtime's registers and local memory per thread for each
+    kernel of the loaded library."""
+    from repro_torch.kernels.ssd_scan.ssd_scan import KERNELS, kernel_attrs
+    attrs = kernel_attrs()
+    assert tuple(attrs) == KERNELS
+    assert all(0 < a["registers"] <= 255 and a["local_bytes"] >= 0 for a in attrs.values())
 
 
 @pytest.mark.gpu

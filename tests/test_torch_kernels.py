@@ -31,8 +31,7 @@ from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
 from repro.kernels.rmsnorm.ops import rmsnorm as jax_rmsnorm
 from repro_torch import convert
 from repro_torch.kernels import launch_counts, reset_launch_counts
-from repro_torch.kernels.flash_attention.flash_attention import (aligned_inputs,
-                                                                 cp_async_ready)
+from repro_torch.kernels.cp_async import aligned_input, cp_async_ready
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
 from repro_torch.kernels.rmsnorm.rmsnorm import _ARGS, SOURCE as RMSNORM_SOURCE, row_stride
@@ -182,7 +181,7 @@ def test_flash_alignment_decision(make_view, ready):
     which it copies: cp.async reads 16 bytes at a time."""
     t = make_view()
     assert cp_async_ready(t) is ready
-    (got,) = aligned_inputs(t)
+    got = aligned_input(t)
     if ready:
         assert got is t
     else:

@@ -6,18 +6,20 @@ Run from the root of a checkout, on a machine with one CUDA card:
   python3 chip_smoke.py
 
 It builds the hand-written kernels from the checkout's sources and
-serves h2o-danube-1.8b (dense) and mamba2-780m (ssm) at full width and
-full depth, and runs hymba-1.5b (hybrid) at full width (random weights
-from a seed), in phases:
+serves h2o-danube-1.8b (dense), mamba2-780m (ssm) and hymba-1.5b
+(hybrid) at full width and full depth, and arctic-480b and grok-1-314b
+(moe) at full width and reduced depth (2 and 4 layers: neither fits one
+80 GB card whole), with random weights from a seed, in phases (each
+logs its seconds):
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc for the three CUDA libraries (RMSNorm, flash attention,
      SSD chunk), all at once;
   3. RMSNorm kernel vs its plain version (f32, bf16 and f16 x; f32 and
-     bf16 scales; contiguous and strided rows);
+     bf16 scales; contiguous and strided rows; every model width);
   4. flash-attention kernels vs their plain version (bf16 on tensor
-     cores, f32 scalar; danube's, hymba's and other shapes; a misaligned
-     bf16 view) and the gradient;
+     cores, f32 scalar; danube's, hymba's, arctic's and grok's shapes and
+     others; a misaligned bf16 view) and the gradient;
   4b. SSD-chunk kernels (C.B^T once per chunk, then every head's block,
      3xTF32 on tensor cores) vs their plain version: the JAX tests'
      shapes and property-test shapes, model shapes, misaligned views
@@ -27,6 +29,15 @@ from a seed), in phases:
      request's greedy tokens alone vs beside staggered others;
   6. danube serving in bf16 through the Router: 8 requests, 4 slots;
      then a torch.profiler breakdown of its serving ticks;
+  7. grok in f32 at 1 layer: prefill with the flash kernel vs the dense
+     path and engine first-token logits vs prefill, on a prompt where
+     neither drops an expert choice (both drop counts checked), staggered
+     joins, and one moe_apply run twice, bit-equal;
+  7b, 7c. grok (4 layers) and arctic (2 layers) serving in bf16 as in
+     phase 6, each after a 2048-token prefill with its drop count; then
+     the profile of arctic's serving ticks;
+  10. hymba in f32: prefill with the flash and SSD kernels vs the dense
+     attention path; 10b. hymba serving in bf16 as in phase 6;
   8. mamba2 in f32: one layer's ssd_apply on the card (kernel) vs the
      CPU (plain), ServeEngine first-token logits (sequential SSD
      decode) vs prefill (chunked, kernel), staggered joins, and a
@@ -34,19 +45,18 @@ from a seed), in phases:
   9. mamba2 serving in bf16 through the Router: the mix of phase 6,
      after a checked 2048-token bf16 lm.prefill, a second one timed by
      CUDA events and a third under torch.profiler (the SSD kernels'
-     share of its device time); then the profile of its serving ticks;
-  10. hymba in f32: prefill with the flash and SSD kernels vs the dense
-     attention path;
-  11. the kernels line: launches on the three paths (phases 5-6, the
-     dense path; phases 8-9, the ssm path; phase 10's kernel prefill,
-     the hybrid path), each path's counts set to 0 just before it and
-     read just after, and each kernel's time at its paths' shapes
-     (taken after phase 4b) beside its plain version, a PyTorch library
-     call computing the same function where there is one, its bound and
-     its own device time, summed over every CUDA kernel its wrapper
-     launches (a missing profiler record fails the run); for the SSD
-     chunk also its kernels' registers and local memory as the CUDA
-     runtime reports them, and mamba2's timed prefill.
+     share of its device time); then the profile of its serving ticks
+     (last: after it the profiler recorded no kernel at all);
+  11. the kernels line: launches on the four paths, in this order
+     (phases 5-6, the dense path; 7-7c, the moe path; 10-10b, the hybrid
+     path; 8-9, the ssm path), each path's counts set to 0 just before
+     it and read just after and checked, and each kernel's time at its
+     paths' shapes (taken after phase 4b) beside its plain version, a
+     PyTorch library call computing the same function where there is
+     one, its bound and its own device time, summed over every CUDA
+     kernel its wrapper launches (a missing profiler record fails the
+     run); for the SSD chunk also its kernels' registers and local
+     memory as the CUDA runtime reports them, and mamba2's timed prefill.
 
 Any failed check raises, so the exit code is non-zero and no result
 line is printed. Without a CUDA device the script exits with code 1
@@ -71,6 +81,11 @@ ARCH = "h2o-danube-1.8b"
 DEVICE = "cuda"
 SSM_ARCH = "mamba2-780m"
 HYBRID_ARCH = "hymba-1.5b"
+# Neither MoE model fits one 80 GB card whole (bf16, by param_count:
+# arctic 27.63 GB per layer + 0.92 outside the layers, grok 9.84 + 3.22),
+# so both run at full width and reduced depth: ~56.2 and ~42.6 GB.
+MOE_DEPTH = {"arctic-480b": 2, "grok-1-314b": 4}
+MOE_F32_ARCH = "grok-1-314b"       # at 1 layer in f32: ~19.7 GB + 6.4 outside
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
@@ -97,6 +112,38 @@ def log(msg: str) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
+
+
+def timed(name: str, fn, *args):
+    """Run one phase and log its seconds."""
+    t = time.perf_counter()
+    out = fn(*args)
+    log(f"[seconds] {name}: {time.perf_counter() - t:.1f}")
+    return out
+
+
+class DropCounter:
+    """Counts the choices ``moe_apply`` drops while it is entered, through
+    the routing helper ``moe_apply`` calls (one count per MoE layer call,
+    kept on the device and summed on exit)."""
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self._layers, self._route = layers, layers._route
+        self._drops = []
+
+        def route(cfg, p, xt):
+            r = self._route(cfg, p, xt)
+            self._drops.append((~r.keep).sum())
+            self.cap = r.cap
+            return r
+
+        layers._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._layers._route = self._route
+        self.drops = int(sum(int(d) for d in self._drops))
 
 
 def gpu_line() -> str:
@@ -259,7 +306,7 @@ def phase_build():
 
 def phase_rmsnorm(gen):
     """At every width the main paths give the kernel: danube's d_model
-    2560 (and 7168, a wider dense model), mamba2's d_model 1536 and
+    2560, arctic's 7168 and grok's 6144, mamba2's d_model 1536 and
     d_inner 3072 (the gated norm), hymba's 1600 and 3200. Norm weights
     near their init value of 1. The plain version runs on
     the same inputs in f32 (its final cast left out): kernel and plain
@@ -271,7 +318,7 @@ def phase_rmsnorm(gen):
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     worst, n = {}, 0
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-        for D in (1536, 1600, 2560, 3072, 3200, 7168):
+        for D in (1536, 1600, 2560, 3072, 3200, 6144, 7168):
             for rows in (1, 4, 64, 4096, 8192):
                 x = torch.randn(rows, D, device=DEVICE, generator=gen).to(dtype)
                 s = 1 + 0.1 * torch.randn(D, device=DEVICE, generator=gen)
@@ -323,7 +370,9 @@ def phase_flash(gen):
                 cases.append((2 if S == 200 else 1, S, 32, 8, d, True, window))
     cases += [(2, 200, 32, 8, 80, False, 0), (1, 333, 8, 2, 64, True, 100),
               (1, 2048, 25, 5, 64, True, 1024),    # hymba's prefill: 25/5 heads
-              (1, 4096, 32, 8, 80, True, 4096)]    # danube: the window binds at the end
+              (1, 4096, 32, 8, 80, True, 4096),    # danube: the window binds at the end
+              (1, 2048, 56, 8, 128, True, 0),      # arctic's prefill: group 7
+              (1, 2048, 48, 8, 128, True, 0)]      # grok's prefill: group 6
     worst, worst_row = {}, {}
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         row_tol = FLASH_ROW_REL_TOL[str(dtype)]
@@ -485,7 +534,8 @@ def norms_per_tick(cfg, C):
 
 def engine_first_token(cfg, params, prompt, lk, chunk):
     """ServeEngine chunked-prefill first-token logits vs ``lk``, the
-    last-position logits of lm.prefill on the same prompt."""
+    last-position logits of lm.prefill on the same prompt. Returns the
+    relative error and the engine's ticks."""
     import torch
     from repro_torch.serve.engine import ServeEngine
     S = len(prompt)
@@ -502,11 +552,12 @@ def engine_first_token(cfg, params, prompt, lk, chunk):
     check(err <= 2e-3, f"{cfg.name} engine first-token logits vs prefill: "
                        f"rel err {err} > 2e-3")
     check(r.generated[0] == int(lk[0, 0].argmax()), "first greedy token differs")
-    return err
+    return err, eng.steps
 
 
 def staggered_tokens_equal(cfg, params, rng):
-    """A request's greedy tokens alone == beside staggered others."""
+    """A request's greedy tokens alone == beside staggered others.
+    Returns the number of tokens compared and both engines' ticks."""
     import torch
     from repro_torch.serve.engine import ServeEngine
     prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist() for n in (96, 40, 150)]
@@ -527,7 +578,7 @@ def staggered_tokens_equal(cfg, params, rng):
     check(ra.done and rb.done and ra.generated == rb.generated,
           f"{cfg.name}: staggered joins changed greedy tokens: "
           f"{ra.generated} vs {rb.generated}")
-    return len(ra.generated)
+    return len(ra.generated), solo.steps + mixed.steps
 
 
 def phase_model_f32(rng):
@@ -546,8 +597,8 @@ def phase_model_f32(rng):
     e1 = rel_err(lk, ld)
     check(bool(torch.isfinite(lk).all()) and e1 <= 1e-3,
           f"prefill kernel vs dense: rel err {e1} > 1e-3")
-    e2 = engine_first_token(cfg, params, prompt, lk, 128)
-    n = staggered_tokens_equal(cfg, params, rng)
+    e2, _ = engine_first_token(cfg, params, prompt, lk, 128)
+    n, _ = staggered_tokens_equal(cfg, params, rng)
     log(f"[model f32] {cfg.num_layers} layers d_model {cfg.d_model}: prefill kernel "
         f"vs dense rel err {e1:.3g}; engine first-token vs prefill rel err {e2:.3g}; "
         f"staggered greedy tokens equal ({n})")
@@ -585,8 +636,8 @@ def phase_ssm_f32(rng):
     with torch.no_grad():
         lk, _ = lm.prefill(cfg, params, {"tokens": torch.tensor([prompt], device=DEVICE)})
     check(bool(torch.isfinite(lk).all()), "mamba2 f32 prefill logits not finite")
-    e_eng = engine_first_token(cfg, params, prompt, lk, 128)
-    n = staggered_tokens_equal(cfg, params, rng)
+    e_eng, _ = engine_first_token(cfg, params, prompt, lk, 128)
+    n, _ = staggered_tokens_equal(cfg, params, rng)
 
     # two requests through one recycled slot == two fresh engines
     pa, pb = (rng.randint(0, cfg.vocab_size, size=k).tolist() for k in (40, 60))
@@ -616,20 +667,20 @@ def phase_hybrid_f32(rng):
     """hymba at full width and depth in f32: lm.prefill with the flash
     and SSD kernels vs the dense attention path (whose SSD layers run
     the SSD kernel too) on a 2048-token prompt, where the window of
-    1024 binds. The hybrid path is the kernel prefill alone: the counts
-    are set to 0 just before it and read just after, and returned."""
+    1024 binds. The kernel prefill's launches are read around it alone,
+    checked and returned."""
     import torch
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import launch_counts
     from repro_torch.models import lm
     cfg = get_config(HYBRID_ARCH).replace(param_dtype="float32", compute_dtype="float32")
     params = lm.init_params(cfg, SEED, DEVICE)
     toks = torch.tensor([rng.randint(0, cfg.vocab_size, size=2048).tolist()],
                         device=DEVICE)
     with torch.no_grad():
-        reset_launch_counts()
+        before = launch_counts()
         lk, _ = lm.prefill(cfg, params, {"tokens": toks}, attention_impl="kernel")
-        counts = launch_counts()
+        counts = {k: v - before[k] for k, v in launch_counts().items()}
         ld, _ = lm.prefill(cfg, params, {"tokens": toks}, attention_impl="dense")
     e_h = rel_err(lk, ld)
     check(bool(torch.isfinite(lk).all()) and e_h <= 1e-3,
@@ -648,12 +699,93 @@ def phase_hybrid_f32(rng):
     return counts
 
 
-def phase_serve_bf16(rng, arch):
+def kernel_prefill_launches(cfg, n: int = 1) -> dict:
+    """Launches of ``n`` lm.prefill calls with the flash kernel, dense
+    and moe families: flash once per layer; RMSNorm for norm1 twice per
+    layer (once for the cache's K/V, once in the layer body), norm2,
+    and the final norm."""
+    L = cfg.num_layers
+    return {"flash_attention": n * L, "ssd_chunk": 0, "rmsnorm": n * (3 * L + 1)}
+
+
+def add_launches(*counts) -> dict:
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def phase_moe_f32(rng):
+    """grok-1-314b at full width and 1 layer in f32: lm.prefill with the
+    flash kernel vs the dense attention path, and the ServeEngine's
+    chunked-prefill first-token logits vs lm.prefill, on the first seeded
+    512-token prompt whose prefill drops nothing (cap 256 per expert,
+    twice the mean load), with both drop counts checked; greedy tokens
+    alone vs beside staggered joins; one layer's moe_apply run twice on
+    one input, bit-equal (a scatter by atomics would not be). Returns the
+    kernel launches these calls make, from their structure."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import layers, lm
+    cfg = get_config(MOE_F32_ARCH).replace(num_layers=1, param_dtype="float32",
+                                           compute_dtype="float32")
+    params = lm.init_params(cfg, SEED, DEVICE)
+    S, prefills = 512, 0
+    with torch.no_grad():
+        for _ in range(4):
+            prompt = rng.randint(0, cfg.vocab_size, size=S).tolist()
+            toks = torch.tensor([prompt], device=DEVICE)
+            with DropCounter() as dk:
+                lk, _ = lm.prefill(cfg, params, {"tokens": toks}, attention_impl="kernel")
+            prefills += 1
+            if dk.drops == 0:
+                break
+        with DropCounter() as dd:
+            ld, _ = lm.prefill(cfg, params, {"tokens": toks}, attention_impl="dense")
+    check(dk.drops == 0 and dd.drops == 0,
+          f"{cfg.name} f32 prefill drops {dk.drops} (kernel), {dd.drops} (dense)")
+    e1 = rel_err(lk, ld)
+    check(bool(torch.isfinite(lk).all()) and e1 <= 1e-3,
+          f"{cfg.name} prefill kernel vs dense: rel err {e1} > 1e-3")
+    # 2 slots x chunk 64 = 128 rows a tick: a token's k experts are
+    # distinct, so no expert gets more than 128 choices, the capacity floor
+    with DropCounter() as de:
+        e2, ticks = engine_first_token(cfg, params, prompt, lk, 64)
+    check(de.drops == 0, f"{cfg.name} engine dropped {de.drops} choices")
+    # 4 slots x chunk 16 = 64 rows a tick, 128 choices, and no expert gets
+    # more than 64 of them (a token's k experts are distinct): under the
+    # capacity floor of 128, serving drops nothing, so no slot's rows can
+    # push another slot's choices out of an expert
+    n, ticks2 = staggered_tokens_equal(cfg, params, rng)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    x = torch.randn(1, 2048, cfg.d_model, device=DEVICE, generator=gen)
+    lp = tree_map(lambda a: a[0], params["layers"])
+    with torch.no_grad():
+        y1, a1 = layers.moe_apply(cfg, lp["moe"], x)
+        y2, a2 = layers.moe_apply(cfg, lp["moe"], x)
+    check(torch.equal(y1, y2) and all(torch.equal(a1[k], a2[k]) for k in a1),
+          f"{cfg.name} moe_apply differs between two runs on one input")
+    log(f"[moe f32] {cfg.name} {cfg.num_layers} layer (of {get_config(MOE_F32_ARCH).num_layers}) "
+        f"d_model {cfg.d_model}, {cfg.num_experts} experts top-{cfg.top_k}: {S}-token "
+        f"prompt (try {prefills}), drops kernel {dk.drops} dense {dd.drops} engine "
+        f"{de.drops} (cap {dk.cap} prefill, {de.cap} per engine tick); prefill kernel vs "
+        f"dense rel err {e1:.3g}; engine first-token vs prefill rel err {e2:.3g}; "
+        f"staggered greedy tokens equal ({n}); moe_apply at T=2048 (cap "
+        f"{layers.moe_capacity(cfg, 2048)}) bit-equal over two runs")
+    want = add_launches(kernel_prefill_launches(cfg, prefills),
+                        {"flash_attention": 0, "ssd_chunk": 0,
+                         "rmsnorm": 3 * cfg.num_layers + 1 + (ticks + ticks2)
+                         * norms_per_tick(cfg, 1)})
+    del params, lp
+    torch.cuda.empty_cache()
+    return want
+
+
+def phase_serve_bf16(rng, arch, layers=None):
     """Serving in bf16 through the Router: 8 requests, prompts uniform in
     64-512 tokens, 32 new tokens, 4 slots, chunk 16, max_len 1024; before
-    it, a bf16 2048-token lm.prefill and, for the ssm family, two more on
-    the same prompt (:func:`prefill_timing`). Returns the config, the
-    parameters and the prefill timing (None for other families)."""
+    it, a bf16 2048-token lm.prefill (for the moe family with its drop
+    count) and, for the ssm family, two more on the same prompt
+    (:func:`prefill_timing`). ``layers`` cuts the depth. Returns the
+    config, the parameters, the prefill timing (None for other families)
+    and the serving stats."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import launch_counts
@@ -662,15 +794,22 @@ def phase_serve_bf16(rng, arch):
     from repro_torch.serve.router import Router
     from repro_torch.serve.slo import SloTracker
     cfg = get_config(arch)
+    full_depth = cfg.num_layers
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
     check(cfg.param_dtype == "bfloat16" and cfg.compute_dtype == "bfloat16",
           f"{arch} serves in bf16")
     params = lm.init_params(cfg, SEED, DEVICE)
     toks = torch.tensor([rng.randint(0, cfg.vocab_size, size=2048).tolist()],
                         device=DEVICE)
     before = launch_counts()
-    with torch.no_grad():
+    with torch.no_grad(), DropCounter() as drops:
         lk, _ = lm.prefill(cfg, params, {"tokens": toks}, attention_impl="kernel")
     check(bool(torch.isfinite(lk.float()).all()), "bf16 prefill logits not finite")
+    if cfg.num_experts > 0:
+        log(f"[prefill bf16] {cfg.name} {cfg.num_layers} of {full_depth} layers, 2048 "
+            f"tokens: {drops.drops} of {2048 * cfg.top_k * cfg.num_layers} choices "
+            f"dropped (cap {drops.cap} per expert)")
     prefill = None
     if cfg.family == "ssm":
         n_ssd = launch_counts()["ssd_chunk"] - before["ssd_chunk"]
@@ -708,7 +847,8 @@ def phase_serve_bf16(rng, arch):
           f"rmsnorm launches {norms} != {want} over {eng.steps} ticks")
     gen = sum(len(r.generated) for r in done)
     snap = slo.arm_snapshot("baseline")
-    stats = {"arch": arch, "requests": 8, "prompt_lens": [int(n) for n in lens],
+    stats = {"arch": arch, "layers": cfg.num_layers, "full_depth_layers": full_depth,
+             "requests": 8, "prompt_lens": [int(n) for n in lens],
              "new_tokens": 32, "slots": 4, "prefill_chunk": 16,
              "generated_tokens": gen, "ticks": eng.steps, "wall_s": wall,
              "tokens_per_s": gen / wall, "ms_per_tick": 1e3 * wall / eng.steps,
@@ -716,7 +856,7 @@ def phase_serve_bf16(rng, arch):
              "p50_tpot_ms": snap["p50_tpot_ms"], "p95_tpot_ms": snap["p95_tpot_ms"],
              "rmsnorm_launches_serving": norms}
     log(f"[serve bf16] {json.dumps(stats)}")
-    return cfg, params, prefill
+    return cfg, params, prefill, stats
 
 
 def phase_profile(cfg, params, rng):
@@ -908,7 +1048,7 @@ def phase_kernel_times(gen):
 
     danube = (1, 2048, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
               cfg.sliding_window)
-    hymba = get_config(HYBRID_ARCH)
+    hymba, arctic = get_config(HYBRID_ARCH), get_config("arctic-480b")
     out.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
@@ -919,7 +1059,10 @@ def phase_kernel_times(gen):
              **flash_at(*danube, torch.float32)},
             {"use": f"{HYBRID_ARCH} bf16 prefill, the window binds",
              **flash_at(1, 2048, hymba.num_heads, hymba.num_kv_heads,
-                        hymba.resolved_head_dim, hymba.sliding_window, torch.bfloat16)}]})
+                        hymba.resolved_head_dim, hymba.sliding_window, torch.bfloat16)},
+            {"use": "arctic-480b bf16 prefill, group 7, d 128",
+             **flash_at(1, 2048, arctic.num_heads, arctic.num_kv_heads,
+                        arctic.resolved_head_dim, 0, torch.bfloat16)}]})
 
     # the SSD chunk at mamba2's 2048-token prefill: x bf16, the rest f32,
     # the decays of mamba2's init. Least work: C.B^T once per chunk and,
@@ -1040,19 +1183,19 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"[device] {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.device_count()} device(s)")
-    phase_build()
+    timed("build", phase_build)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    phase_rmsnorm_fresh(gen)
-    phase_rmsnorm(gen)
-    phase_flash(gen)
-    phase_ssd(gen)
-    times = phase_kernel_times(gen)
+    timed("rmsnorm fresh", phase_rmsnorm_fresh, gen)
+    timed("rmsnorm", phase_rmsnorm, gen)
+    timed("flash", phase_flash, gen)
+    timed("ssd", phase_ssd, gen)
+    times = timed("kernel times", phase_kernel_times, gen)
 
     rng = np.random.RandomState(SEED)
     paths = {}
     reset_launch_counts()                      # the dense path: phases 5-6
-    phase_model_f32(rng)
-    cfg, params, _ = phase_serve_bf16(rng, ARCH)
+    timed("model f32", phase_model_f32, rng)
+    cfg, params, _, _ = timed("serve bf16 " + ARCH, phase_serve_bf16, rng, ARCH)
     paths["dense"] = launch_counts()
     log(f"[dense path] kernel launches in phases 5-6: {paths['dense']}")
     # one flash launch per layer in each of the f32 and bf16 prefills;
@@ -1061,13 +1204,55 @@ def main() -> int:
     check(paths["dense"]["flash_attention"] == want_flash
           and paths["dense"]["ssd_chunk"] == 0 and paths["dense"]["rmsnorm"] > 0,
           f"dense path launches {paths['dense']}: want {want_flash} flash, no SSD")
-    phase_profile(cfg, params, rng)
+    timed("profile " + ARCH, phase_profile, cfg, params, rng)
+    del params
+    torch.cuda.empty_cache()
+
+    # the moe path: phases 7, 7b and 7c, all of it counted exactly: per
+    # kernel prefill L flash and 3L+1 RMSNorm, per serving tick 2L+1
+    reset_launch_counts()
+    want = [timed("moe f32", phase_moe_f32, rng)]
+    for arch in ("grok-1-314b", "arctic-480b"):   # arctic last: its profile follows
+        cfg, params, _, stats = timed(f"serve bf16 {arch}", phase_serve_bf16, rng, arch,
+                                      MOE_DEPTH[arch])
+        want.append(add_launches(kernel_prefill_launches(cfg),
+                                 {"flash_attention": 0, "ssd_chunk": 0,
+                                  "rmsnorm": stats["ticks"] * norms_per_tick(cfg, 1)}))
+        if arch != "arctic-480b":
+            del params
+            torch.cuda.empty_cache()
+    paths["moe"] = launch_counts()
+    log(f"[moe path] kernel launches in phases 7-7c: {paths['moe']}")
+    check(paths["moe"] == add_launches(*want),
+          f"moe path launches {paths['moe']} != {add_launches(*want)}")
+    timed("profile arctic-480b", phase_profile, cfg, params, rng)
+    del params
+    torch.cuda.empty_cache()
+
+    # the hybrid path: phase 10's f32 kernel prefill, then hymba's bf16
+    # prefill and serving (the first CUDA run of its paged decode_chunk)
+    reset_launch_counts()
+    timed("hybrid f32", phase_hybrid_f32, rng)
+    hcfg, params, _, stats = timed("serve bf16 " + HYBRID_ARCH, phase_serve_bf16, rng,
+                                   HYBRID_ARCH)
+    paths["hybrid"] = launch_counts()
+    log(f"[hybrid path] kernel launches in phases 10-10b: {paths['hybrid']}")
+    # per prefill: L SSD and 4L+1 RMSNorm (norm1 for the cache's K/V,
+    # norm1, the gated norm, norm2; the final norm), and L flash with the
+    # kernel; three prefills: f32 with the kernel and with dense attention,
+    # bf16 with the kernel. The serving ticks' RMSNorm launches are checked
+    # in phase 10b
+    L = hcfg.num_layers
+    want_h = {"flash_attention": 2 * L, "ssd_chunk": 3 * L,
+              "rmsnorm": 3 * (4 * L + 1) + stats["rmsnorm_launches_serving"]}
+    check(paths["hybrid"] == want_h, f"hybrid path launches {paths['hybrid']} != {want_h}")
     del params
     torch.cuda.empty_cache()
 
     reset_launch_counts()                      # the ssm path: phases 8-9
-    phase_ssm_f32(rng)
-    ssm_cfg, params, prefill = phase_serve_bf16(rng, SSM_ARCH)
+    timed("ssm f32", phase_ssm_f32, rng)
+    ssm_cfg, params, prefill, _ = timed("serve bf16 " + SSM_ARCH, phase_serve_bf16, rng,
+                                        SSM_ARCH)
     paths["ssm"] = launch_counts()
     log(f"[ssm path] kernel launches in phases 8-9: {paths['ssm']}")
     # mamba2 is attention-free; one SSD launch per layer in each of the
@@ -1078,11 +1263,11 @@ def main() -> int:
     check(paths["ssm"]["flash_attention"] == 0 and paths["ssm"]["rmsnorm"] > 0
           and paths["ssm"]["ssd_chunk"] == want_ssd,
           f"ssm path launches {paths['ssm']}: want no flash, {want_ssd} SSD")
-    phase_profile(ssm_cfg, params, rng)
+    # last: after the profile of a mamba2 tick (~240 k device records) the
+    # profiler recorded no kernel at all in a later session
+    timed("profile " + SSM_ARCH, phase_profile, ssm_cfg, params, rng)
     del params
     torch.cuda.empty_cache()
-
-    paths["hybrid"] = phase_hybrid_f32(rng)    # the hybrid path: phase 10
 
     for e in times:
         if e["name"] == "ssd_chunk":

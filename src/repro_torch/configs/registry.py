@@ -1,7 +1,7 @@
 """Architecture registry: --arch <id> -> ModelConfig (+ reduced smoke configs).
 
 The port's registry holds the families its slices so far serve: dense,
-ssm and hybrid. The other architectures of the JAX package are known by
+moe, ssm and hybrid. The other architectures of the JAX package are known by
 name and raise ``NotImplementedError`` naming the ``ROADMAP.md`` slice
 that ports them.
 """
@@ -12,8 +12,8 @@ import dataclasses
 from typing import Dict
 
 from ..models.config import ModelConfig
-from . import (h2o_danube_1_8b, hymba_1_5b, mamba2_780m, phi3_medium_14b,
-               qwen1_5_110b, yi_34b)
+from . import (arctic_480b, grok_1_314b, h2o_danube_1_8b, hymba_1_5b,
+               mamba2_780m, phi3_medium_14b, qwen1_5_110b, yi_34b)
 
 __all__ = ["ARCHS", "LATER_SLICES", "get_config", "smoke_config"]
 
@@ -22,14 +22,14 @@ ARCHS: Dict[str, ModelConfig] = {
     "phi3-medium-14b": phi3_medium_14b.CONFIG,
     "h2o-danube-1.8b": h2o_danube_1_8b.CONFIG,
     "qwen1.5-110b": qwen1_5_110b.CONFIG,
+    "arctic-480b": arctic_480b.CONFIG,
+    "grok-1-314b": grok_1_314b.CONFIG,
     "mamba2-780m": mamba2_780m.CONFIG,
     "hymba-1.5b": hymba_1_5b.CONFIG,
 }
 
 # Architectures of the JAX package that later slices of the port add.
 LATER_SLICES: Dict[str, str] = {
-    "arctic-480b": "slice 3 (MoE)",
-    "grok-1-314b": "slice 3 (MoE)",
     "internvl2-1b": "slice 4 (vision and audio frontends)",
     "musicgen-medium": "slice 4 (vision and audio frontends)",
 }
@@ -63,6 +63,8 @@ def smoke_config(name: str) -> ModelConfig:
         kv = max(1, min(cfg.num_kv_heads, 2))
         kw.update(num_heads=heads, num_kv_heads=kv, head_dim=16,
                   d_ff=0 if cfg.d_ff == 0 else 128)
+    if cfg.num_experts > 0:
+        kw.update(num_experts=4, top_k=2, moe_d_ff=96, d_ff=128)
     if cfg.ssm_state > 0:
         kw.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=16, ssm_expand=2)
     if cfg.sliding_window > 0:

@@ -1,10 +1,11 @@
 """Model layers, PyTorch. One param-builder + one apply per layer kind.
 
-The dense, ssm and hybrid subset of the JAX package's
+The dense, moe, ssm and hybrid subset of the JAX package's
 ``models/layers.py``: RMSNorm, RoPE (half-split layout), GQA attention
 with its dense, blockwise and kernel paths, the dense and paged decode
-steps, the SwiGLU / GeGLU / GELU FFN, and the Mamba-2 SSD block (chunked
-prefill, one-token and chunked decode). Numerics follow the reference
+steps, the SwiGLU / GeGLU / GELU FFN, the top-k capacity-dropped MoE
+block, and the Mamba-2 SSD block (chunked prefill, one-token and
+chunked decode). Numerics follow the reference
 point for point: f32 softmax,
 the probabilities cast to the compute dtype before the PV product, and
 ``-1e30`` (not ``-inf``) for masked scores, so a fully masked row gets a
@@ -21,7 +22,7 @@ CUDA tensors and take the plain version for CPU tensors.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -383,6 +384,126 @@ def mlp_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     else:
         h = F.gelu(up, approximate="tanh")
     return torch.einsum("bsf,fd->bsd", h, p["w_down"].to(cdt))
+
+
+# ---------------------------------------------------------------------------
+# MoE (top-k routing, capacity-dropped index dispatch)
+# ---------------------------------------------------------------------------
+
+
+def build_moe(b: Builder, cfg: ModelConfig) -> Params:
+    E, D, F_ = cfg.num_experts, cfg.d_model, cfg.expert_d_ff
+    with b.scope("moe"):
+        p = {
+            "router": b.param("router", (D, E), ("embed", "experts"),
+                              normal_init(0.02), dtype=torch.float32),
+            "w_up": b.param("w_up", (E, D, F_),
+                            ("experts", "expert_embed", "expert_ffn"),
+                            he_normal, fan_in=D),
+            "w_gate": b.param("w_gate", (E, D, F_),
+                              ("experts", "expert_embed", "expert_ffn"),
+                              he_normal, fan_in=D),
+            "w_down": b.param("w_down", (E, F_, D),
+                              ("experts", "expert_ffn", "expert_embed"),
+                              he_normal, fan_in=F_),
+        }
+        if cfg.dense_residual:
+            p["dense"] = build_mlp(b, cfg, "dense_residual", cfg.d_ff)
+        return p
+
+
+def moe_capacity(cfg: ModelConfig, T: int) -> int:
+    """Slots per expert for T routed rows: ceil(T*k*cf/E) rounded up to
+    a multiple of 128, at least 128 (from the shape, on the host)."""
+    cap = int(math.ceil(T * cfg.top_k * cfg.capacity_factor / cfg.num_experts
+                        / 128.0) * 128)
+    return max(cap, 128)
+
+
+class _Routing(NamedTuple):
+    logits: torch.Tensor     # (T,E) f32
+    probs: torch.Tensor      # (T,E) f32
+    ids: torch.Tensor        # (T,k) chosen experts, best first
+    weights: torch.Tensor    # (T,k) f32, renormalised over the k choices
+    counts: torch.Tensor     # (E,) choices per expert, drops included
+    slot: torch.Tensor       # (T*k,) place of each (token, choice) in its expert
+    keep: torch.Tensor       # (T*k,) bool: slot < cap
+    cap: int
+
+
+def _route(cfg: ModelConfig, p: Params, xt: torch.Tensor) -> _Routing:
+    """The router of :func:`moe_apply` for rows ``xt`` (T,D).
+
+    Top-k is a stable descending sort cut to k: on equal probabilities
+    the lower expert comes first, as ``lax.top_k`` orders them
+    (``torch.topk`` orders such ties the other way, which would swap a
+    token's choices in the capacity order). A choice's slot is the
+    number of earlier choices of its expert over the flattened (token,
+    choice) order; a choice at ``slot >= cap`` is dropped."""
+    T = xt.shape[0]
+    E, k = cfg.num_experts, cfg.top_k
+    logits = xt.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    weights, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    weights, ids = weights[:, :k], ids[:, :k]
+    weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
+    cap = moe_capacity(cfg, T)
+    flat = ids.reshape(-1)
+    onehot = (flat[:, None] == torch.arange(E, device=xt.device)).long()
+    slots = torch.cumsum(onehot, dim=0) - onehot               # exclusive
+    slot = torch.gather(slots, 1, flat[:, None])[:, 0]
+    return _Routing(logits, probs, ids, weights, onehot.sum(0), slot, slot < cap, cap)
+
+
+def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: (B,S,D) -> (y, aux losses). Capacity-dropped top-k dispatch.
+
+    No atomics and no host syncs: every kept choice has its own (expert,
+    slot), so a plain ``index_put_`` into zeros gives the bits of JAX's
+    ``.at[].add``; dropped choices go to one spill row past the E*cap
+    expert rows, which is never read. The k choices of a token are
+    summed in choice order."""
+    B, S, D = x.shape
+    E, k = cfg.num_experts, cfg.top_k
+    cdt = cfg.compute_torch_dtype()
+    T = B * S
+    xt = x.reshape(T, D)
+    r = _route(cfg, p, xt)
+    cap = r.cap
+
+    # aux losses (Switch-style load balance + router z-loss), f32
+    me = r.probs.mean(dim=0)                                     # (E,)
+    ce = r.counts.float() / (T * k)
+    lb_loss = E * torch.sum(me * ce) * cfg.load_balance_loss
+    z_loss = torch.mean(torch.logsumexp(r.logits, dim=-1) ** 2) * cfg.router_z_loss
+
+    flat = r.ids.reshape(-1)                                     # (T*k,)
+    tok = torch.arange(T, device=x.device).repeat_interleave(k)
+    spill = E * cap
+    dest = torch.where(r.keep, flat * cap + r.slot, torch.full_like(flat, spill))
+    buf = torch.zeros((spill + 1, D), dtype=cdt, device=x.device)
+    buf.index_put_((dest,), xt[tok].to(cdt))
+    eb = buf[:spill].view(E, cap, D)
+
+    up = torch.einsum("ecd,edf->ecf", eb, p["w_up"].to(cdt))
+    gate = torch.einsum("ecd,edf->ecf", eb, p["w_gate"].to(cdt))
+    if cfg.act == "geglu":
+        act = F.gelu(gate, approximate="tanh") * up   # jax.nn.gelu's default
+    else:
+        act = F.silu(gate) * up
+    out = torch.einsum("ecf,efd->ecd", act, p["w_down"].to(cdt)).reshape(spill, D)
+
+    src = flat * cap + torch.clamp(r.slot, max=cap - 1)
+    gathered = out[src].masked_fill(~r.keep[:, None], 0)
+    gathered = (gathered * r.weights.reshape(-1).to(cdt)[:, None]).view(T, k, D)
+    y = gathered[:, 0]
+    for j in range(1, k):
+        y = y + gathered[:, j]
+    y = y.reshape(B, S, D)
+    if cfg.dense_residual:
+        y = y + mlp_apply(cfg, p["dense"], x)
+    return y, {"load_balance": lb_loss, "router_z": z_loss}
 
 
 # ---------------------------------------------------------------------------

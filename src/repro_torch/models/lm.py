@@ -1,9 +1,10 @@
 """Full language models, PyTorch: params, forward, loss, prefill, decode.
 
-The dense, ssm and hybrid subset of the JAX package's ``models/lm.py``.
-The per-layer body is
+The dense, moe, ssm and hybrid subset of the JAX package's
+``models/lm.py``. The per-layer body is
 
   dense   : x += attn(n1(x));  x += mlp(n2(x))
+  moe     : x += attn(n1(x));  x += moe(n2(x))   (+ aux losses)
   ssm     : x += ssd(n1(x))                       (attention-free)
   hybrid  : x += (attn(n1(x)) + ssd(n1(x)))/2;  x += mlp(n2(x))  (hymba)
 
@@ -13,8 +14,8 @@ dimension the port loops over indexed slices. Caches are updated in
 place where the JAX serving path donates them.
 
 ``remat`` is accepted for signature parity and ignored until training
-is ported. Other families (moe, vlm, audio) raise
-``NotImplementedError``: later slices of ``ROADMAP.md`` port them.
+is ported. The frontend families (vlm, audio) raise
+``NotImplementedError``: a later slice of ``ROADMAP.md`` ports them.
 """
 
 from __future__ import annotations
@@ -27,9 +28,9 @@ from ..device import resolve_device
 from .config import ModelConfig
 from .layers import (_qkv, attention_apply, attention_decode,
                      attention_decode_paged, build_attention, build_mlp,
-                     build_rmsnorm, build_ssd, init_kv_cache, init_ssd_cache,
-                     mlp_apply, rmsnorm, ssd_apply, ssd_decode,
-                     ssd_decode_chunk)
+                     build_moe, build_rmsnorm, build_ssd, init_kv_cache,
+                     init_ssd_cache, mlp_apply, moe_apply, rmsnorm, ssd_apply,
+                     ssd_decode, ssd_decode_chunk)
 from .modules import Builder, Mode, normal_init
 
 Params = Dict[str, Any]
@@ -37,12 +38,13 @@ Device = Union[str, torch.device, None]
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if (cfg.family not in ("dense", "ssm", "hybrid")
+    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
             or cfg.hybrid != (cfg.family == "hybrid")
-            or cfg.num_experts > 0 or cfg.frontend != "none"):
+            or (cfg.num_experts > 0) != (cfg.family == "moe")
+            or cfg.frontend != "none"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            f"(dense, ssm and hybrid only; see the slices in ROADMAP.md)")
+            f"(dense, moe, ssm and hybrid only; see the slices in ROADMAP.md)")
 
 
 def _has_ssd(cfg: ModelConfig) -> bool:
@@ -71,7 +73,10 @@ def build_layer(b: Builder, cfg: ModelConfig) -> Params:
     if cfg.hybrid:
         p["ssd"] = build_ssd(b, cfg)
     p["norm2"] = build_rmsnorm(b, "norm2", cfg.d_model)
-    p["mlp"] = build_mlp(b, cfg)
+    if cfg.num_experts > 0:
+        p["moe"] = build_moe(b, cfg)
+    else:
+        p["mlp"] = build_mlp(b, cfg)
     return p
 
 
@@ -108,26 +113,32 @@ def abstract_params(cfg: ModelConfig) -> Params:
 
 def _residual(cfg: ModelConfig, lp: Params, x: torch.Tensor,
               att: Optional[torch.Tensor], y_ssd: Optional[torch.Tensor]
-              ) -> torch.Tensor:
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The rest of a layer once its mixers have run: ``x + ssd`` (ssm),
-    ``x + att`` (dense) or ``x + (att + ssd)/2`` (hybrid), then the MLP
-    block where the family has one. ``att`` is None for the ssm family,
-    ``y_ssd`` None for dense."""
+    ``x + att`` (dense, moe) or ``x + (att + ssd)/2`` (hybrid), then the
+    MLP or MoE block where the family has one. ``att`` is None for the
+    ssm family, ``y_ssd`` None for dense and moe. Returns the new x and
+    the MoE's aux losses ({} for the other families)."""
     if cfg.family == "ssm":
-        return x + y_ssd
+        return x + y_ssd, {}
     if cfg.hybrid:
         att = 0.5 * (att + y_ssd)
     x = x + att
     h2 = rmsnorm(lp["norm2"], x, cfg.norm_eps)
-    return x + mlp_apply(cfg, lp["mlp"], h2)
+    if cfg.num_experts > 0:
+        y, aux = moe_apply(cfg, lp["moe"], h2)
+        return x + y, aux
+    return x + mlp_apply(cfg, lp["mlp"], h2), {}
 
 
 def _layer_body(cfg: ModelConfig, lp: Params, x: torch.Tensor,
                 positions: torch.Tensor, attention_impl: str,
                 return_state: bool
-                ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """One layer; with ``return_state`` also the SSD cache state that
-    ``ssd_apply`` leaves after the sequence (None without an SSD)."""
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                           Optional[Dict[str, torch.Tensor]]]:
+    """One layer: the new x, its aux losses and, with ``return_state``,
+    the SSD cache state that ``ssd_apply`` leaves after the sequence
+    (None without an SSD)."""
     h = rmsnorm(lp["norm1"], x, cfg.norm_eps)
     att = y_ssd = st = None
     if _has_ssd(cfg):
@@ -137,13 +148,15 @@ def _layer_body(cfg: ModelConfig, lp: Params, x: torch.Tensor,
             y_ssd = ssd_apply(cfg, lp["ssd"], h)
     if cfg.family != "ssm":
         att = attention_apply(cfg, lp["attn"], h, positions, attention_impl)
-    return _residual(cfg, lp, x, att, y_ssd), st
+    x, aux = _residual(cfg, lp, x, att, y_ssd)
+    return x, aux, st
 
 
 def layer_apply(cfg: ModelConfig, lp: Params, x: torch.Tensor,
                 positions: torch.Tensor, attention_impl: str = "auto"
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    return _layer_body(cfg, lp, x, positions, attention_impl, False)[0], {}
+    x, aux, _ = _layer_body(cfg, lp, x, positions, attention_impl, False)
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -154,8 +167,10 @@ def layer_apply(cfg: ModelConfig, lp: Params, x: torch.Tensor,
 def embed_tokens(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor]
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (x (B,S,D), positions (S,)). Tokens must lie in
-    [0, vocab): ``jnp.take`` clamps out-of-range ids, torch indexing
-    raises."""
+    [0, vocab): ``jnp.take`` fills the row of an out-of-range id with
+    NaN (and wraps -1 to the last row), torch indexing raises on the CPU
+    and asserts on the device, so the serving engine rejects such ids at
+    submit."""
     _check_family(cfg)
     tokens = batch["tokens"]
     x = p["embed"][tokens.long()].to(cfg.compute_torch_dtype())
@@ -177,11 +192,17 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
             attention_impl: str = "auto", remat: str = "full"
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     x, positions = embed_tokens(cfg, params, batch)
+    aux_acc: Dict[str, torch.Tensor] = {}
+    if cfg.num_experts > 0:
+        aux_acc = {name: torch.zeros((), dtype=torch.float32, device=x.device)
+                   for name in ("load_balance", "router_z")}
     for li in range(cfg.num_layers):
-        x, _ = layer_apply(cfg, _layer(params["layers"], li), x, positions,
-                           attention_impl)
+        x, aux = layer_apply(cfg, _layer(params["layers"], li), x, positions,
+                             attention_impl)
+        for name, v in aux.items():
+            aux_acc[name] = aux_acc[name] + v
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return lm_head(cfg, params, x), {}
+    return lm_head(cfg, params, x), aux_acc
 
 
 def cross_entropy(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
@@ -303,7 +324,7 @@ def decode_chunk(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         if cfg.family != "ssm":
             att, _ = attention_decode_paged(cfg, lp["attn"], hn, _layer(kv, li),
                                             block_table, pos, adv)
-        x = _residual(cfg, lp, x, att, y_ssd)
+        x, _ = _residual(cfg, lp, x, att, y_ssd)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return lm_head(cfg, params, x), cache
 
@@ -324,7 +345,7 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             _write_layer(cache["ssd"], li, new_ssd)
         if cfg.family != "ssm":
             att, _ = attention_decode(cfg, lp["attn"], hn, _layer(cache["kv"], li), pos)
-        x = _residual(cfg, lp, x, att, y_ssd)
+        x, _ = _residual(cfg, lp, x, att, y_ssd)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = lm_head(cfg, params, x)
     return logits, {**cache, "pos": pos + 1}
@@ -356,7 +377,7 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
                 v_ = v_[:, -cfg.sliding_window:]
             emitted["k"].append(k_)
             emitted["v"].append(v_)
-        x, st = _layer_body(cfg, lp, x, positions, attention_impl, True)
+        x, _, st = _layer_body(cfg, lp, x, positions, attention_impl, True)
         if st is not None:
             emitted["state"].append(st["state"])
             emitted["conv"].append(st["conv"])

@@ -39,12 +39,17 @@ def _path_seed(path: str) -> int:
 
 
 def _randn(gen: torch.Generator, shape, device) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+    return torch.empty(shape, device=device, dtype=torch.float32).normal_(generator=gen)
 
+
+# An init returns one layer's values in any floating dtype; the Builder
+# casts them to the parameter's dtype. The normal inits hand back their
+# f32 draw uncast, so a stacked parameter's layer is cast straight into
+# its slot and no second copy of the layer is made.
 
 def he_normal(gen, shape, dtype, device, fan_in: int):
     std = math.sqrt(2.0 / max(fan_in, 1))
-    return (_randn(gen, shape, device) * std).to(dtype)
+    return _randn(gen, shape, device).mul_(std)
 
 
 def zeros_init(gen, shape, dtype, device, fan_in=None):
@@ -57,7 +62,7 @@ def ones_init(gen, shape, dtype, device, fan_in=None):
 
 def normal_init(std: float):
     def f(gen, shape, dtype, device, fan_in=None):
-        return (_randn(gen, shape, device) * std).to(dtype)
+        return _randn(gen, shape, device).mul_(std)
     return f
 
 
@@ -105,12 +110,17 @@ class Builder:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.seed * 2**32 + _path_seed(f"{self.path}/{name}"))
         if self._stack is None:
-            return init(gen, shape, dtype, self.device, fan_in)
+            return init(gen, shape, dtype, self.device, fan_in).to(dtype)
         # As JAX's vmap over the layers: each layer's init sees the
         # unstacked shape (a shape-dependent init such as the SSD's
         # log(linspace(1, 16, H)) must give every layer the same row).
-        return torch.stack([init(gen, shape, dtype, self.device, fan_in)
-                            for _ in range(self._stack)])
+        # The stack is allocated once and filled layer by layer, so the
+        # peak is the stack plus one layer's draw (arctic's expert
+        # weights are 8.9 GB per layer in bf16, 17.9 GB drawn in f32).
+        out = torch.empty((self._stack,) + shape, dtype=dtype, device=self.device)
+        for i in range(self._stack):
+            out[i].copy_(init(gen, shape, dtype, self.device, fan_in))
+        return out
 
 
 class _Scope:

@@ -12,6 +12,11 @@ Request lifecycle errors are per-request and typed: an invalid submit
 or a cache-bounds breach fails that request with a :class:`ServeError`
 subclass, never the engine, and ``run(max_steps=...)`` fails whatever
 is still unfinished at the cap with :class:`DeadlineExceededError`.
+A prompt with a token id outside ``[0, vocab)`` fails at submit with
+:class:`InvalidTokenError`. This departs from the JAX engine on
+purpose: there such a request completes, its tokens drawn from the NaN
+logits that ``jnp.take`` leaves for the id; here the id would fail the
+embedding lookup of the whole tick (a device-side assert on CUDA).
 
 Counts are plain integers (``stats()``); sampling uses
 ``np.random.RandomState(seed)`` as the JAX engine does, so temperature
@@ -35,7 +40,7 @@ from ..models.config import ModelConfig
 from .kvcache import KVCacheManager
 
 __all__ = ["ServeEngine", "Request", "ServeError", "EmptyPromptError",
-           "CacheOverflowError", "DeadlineExceededError",
+           "InvalidTokenError", "CacheOverflowError", "DeadlineExceededError",
            "STATUS_QUEUED", "STATUS_PREFILL", "STATUS_DECODE",
            "STATUS_DONE", "STATUS_FAILED"]
 
@@ -46,6 +51,10 @@ class ServeError(RuntimeError):
 
 class EmptyPromptError(ServeError):
     """submit() got an empty prompt."""
+
+
+class InvalidTokenError(ServeError):
+    """submit() got a prompt with a token id outside [0, vocab)."""
 
 
 class CacheOverflowError(ServeError):
@@ -154,6 +163,11 @@ class ServeEngine:
         r.t_submit = self.clock()
         if not r.prompt:
             return self._fail(r, EmptyPromptError("empty prompt"))
+        lo, hi = min(r.prompt), max(r.prompt)
+        if lo < 0 or hi >= self.cfg.vocab_size:
+            bad = lo if lo < 0 else hi
+            return self._fail(r, InvalidTokenError(
+                f"token id {bad} outside [0, {self.cfg.vocab_size})"))
         budget = len(r.prompt) + max_new_tokens
         if budget > self.max_len:
             return self._fail(r, CacheOverflowError(

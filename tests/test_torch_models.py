@@ -1,15 +1,16 @@
-"""The port's dense, ssm and hybrid models against the JAX package, on the CPU.
+"""The port's dense, moe, ssm and hybrid models against the JAX package, on the CPU.
 
 First the JAX oracle the port is held against: JAX ``decode_chunk``
 over the paged pool must reproduce JAX ``forward``. Then the port's
 ``forward`` (dense and kernel paths), ``prefill`` and its cache,
 ``decode_step`` and ``decode_chunk`` (logits, the K/V pool after the
 scatter and the SSD state after each chunk) against JAX on the same
-converted parameters.
+converted parameters; for the moe family also ``forward``'s aux losses.
 
 Tolerances: decode vs forward 2e-3 relative, the bound of
 ``test_decode.py``; port vs JAX 1e-4 relative in f32, which leaves room
-only for summation order.
+only for summation order; the aux losses 1e-5 relative (scalars of f32
+means).
 """
 
 import dataclasses
@@ -29,8 +30,9 @@ from repro_torch import convert
 from repro_torch.configs.registry import smoke_config
 from repro_torch.models import lm
 
-ARCHS = ["yi-34b", "h2o-danube-1.8b", "qwen1.5-110b", "mamba2-780m", "hymba-1.5b"]
-ORACLE_ARCHS = ["yi-34b", "h2o-danube-1.8b", "mamba2-780m", "hymba-1.5b"]
+ARCHS = ["yi-34b", "h2o-danube-1.8b", "qwen1.5-110b", "arctic-480b", "grok-1-314b",
+         "mamba2-780m", "hymba-1.5b"]
+ORACLE_ARCHS = ["yi-34b", "h2o-danube-1.8b", "arctic-480b", "mamba2-780m", "hymba-1.5b"]
 
 
 def f32(cfg):
@@ -224,11 +226,15 @@ def test_convert_round_trip_is_bit_exact(dtype):
 def test_forward_matches_jax(arch, impl):
     jcfg, tcfg, jp, tp = world(arch)
     toks = tokens(jcfg, 2, 20, seed=1)
-    want, _ = jlm.forward(jcfg, jp, {"tokens": jnp.asarray(toks)},
-                          attention_impl=impl, remat="none")
-    got, _ = lm.forward(tcfg, tp, {"tokens": torch.from_numpy(toks)},
-                        attention_impl=impl)
+    want, want_aux = jlm.forward(jcfg, jp, {"tokens": jnp.asarray(toks)},
+                                 attention_impl=impl, remat="none")
+    got, aux = lm.forward(tcfg, tp, {"tokens": torch.from_numpy(toks)},
+                          attention_impl=impl)
     assert rel_err(got.numpy(), want) < 1e-4
+    assert sorted(aux) == sorted(want_aux)
+    for name, v in aux.items():
+        assert v.dtype == torch.float32 and v.shape == ()
+        assert abs(float(v) - float(want_aux[name])) <= 1e-5 * abs(float(want_aux[name]))
 
 
 def test_blockwise_attention_matches_dense():
@@ -414,11 +420,12 @@ def test_paged_cache_layers_are_separate_tensors():
 
 
 def test_other_families_raise_not_implemented():
+    """The frontend archs come with slice 4: the registry names it, and
+    the model refuses a vision config."""
     from repro_torch.configs.registry import get_config
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        get_config("internvl2-1b")
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        get_config("arctic-480b")
-    cfg = smoke_config("yi-34b").replace(family="moe", num_experts=4)
+    for arch in ("internvl2-1b", "musicgen-medium"):
+        with pytest.raises(NotImplementedError, match="slice 4"):
+            get_config(arch)
+    cfg = smoke_config("yi-34b").replace(family="vlm", frontend="vision")
     with pytest.raises(NotImplementedError):
         lm.abstract_params(cfg)

@@ -24,7 +24,8 @@ from repro.serve.engine import ServeEngine as JaxServeEngine
 from repro_torch import convert
 from repro_torch.configs.registry import smoke_config
 from repro_torch.serve.engine import (CacheOverflowError, DeadlineExceededError,
-                                      EmptyPromptError, ServeEngine)
+                                      EmptyPromptError, InvalidTokenError,
+                                      ServeEngine)
 from repro_torch.serve.kvcache import KVCacheManager
 from repro_torch.serve.router import Router, RouterOverloadError
 from repro_torch.serve.slo import SloTracker
@@ -288,6 +289,28 @@ class TestRequestErrors:
         ok = eng.submit(PROMPT, max_new_tokens=4)
         eng.run()
         assert ok.done
+
+    def test_out_of_range_token_fails_typed_and_the_rest_are_served(self):
+        """An id outside [0, vocab) fails its request at submit; the
+        engine serves the other one with the JAX engine's tokens (the
+        JAX engine completes the bad request from NaN logits, a
+        departure the port makes on purpose)."""
+        vocab = world("h2o-danube-1.8b")[1].vocab_size
+        good, bad = [1, 2, 3], [5, vocab + 3, 2]
+        jeng = make_jax_engine("h2o-danube-1.8b")
+        jgood = jeng.submit(good, max_new_tokens=4)
+        jeng.submit(bad, max_new_tokens=4)
+        jeng.run()
+        eng = make_port_engine("h2o-danube-1.8b")
+        rg = eng.submit(good, max_new_tokens=4)
+        rb = eng.submit(bad, max_new_tokens=4)
+        assert rb.failed and isinstance(rb.error, InvalidTokenError)
+        assert str(vocab + 3) in str(rb.error)
+        out = eng.run()
+        assert {id(r) for r in out} == {id(rg), id(rb)}
+        assert rg.done and rg.generated == jgood.generated
+        neg = eng.submit([-1, 4], max_new_tokens=2)
+        assert neg.failed and isinstance(neg.error, InvalidTokenError)
 
     def test_run_reports_timeouts_instead_of_dropping(self, cfg, params):
         eng = make_engine(cfg, params, batch_slots=1)

@@ -6,11 +6,12 @@ Run from the root of a checkout, on a machine with one CUDA card:
   python3 chip_smoke.py
 
 It builds the hand-written kernels from the checkout's sources and
-serves h2o-danube-1.8b (dense), mamba2-780m (ssm) and hymba-1.5b
-(hybrid) at full width and full depth, and arctic-480b and grok-1-314b
-(moe) at full width and reduced depth (2 and 4 layers: neither fits one
-80 GB card whole), with random weights from a seed, in phases (each
-logs its seconds):
+serves h2o-danube-1.8b (dense), mamba2-780m (ssm), hymba-1.5b (hybrid),
+internvl2-1b (vision) and musicgen-medium (audio) at full width and full
+depth, and arctic-480b and grok-1-314b (moe) at full width and reduced
+depth (2 and 4 layers: neither fits one 80 GB card whole), and trains
+internvl2-1b at full size, with random weights from a seed, in phases
+(each logs its seconds):
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc for the three CUDA libraries (RMSNorm, flash attention,
@@ -18,8 +19,9 @@ logs its seconds):
   3. RMSNorm kernel vs its plain version (f32, bf16 and f16 x; f32 and
      bf16 scales; contiguous and strided rows; every model width);
   4. flash-attention kernels vs their plain version (bf16 on tensor
-     cores, f32 scalar; danube's, hymba's, arctic's and grok's shapes and
-     others; a misaligned bf16 view) and the gradient;
+     cores, f32 scalar; danube's, hymba's, arctic's, grok's, internvl2's
+     and musicgen's shapes and others; a misaligned bf16 view) and the
+     gradient;
   4b. SSD-chunk kernels (C.B^T once per chunk, then every head's block,
      3xTF32 on tensor cores) vs their plain version: the JAX tests'
      shapes and property-test shapes, model shapes, misaligned views
@@ -47,9 +49,20 @@ logs its seconds):
      CUDA events and a third under torch.profiler (the SSD kernels'
      share of its device time); then the profile of its serving ticks
      (last: after it the profiler recorded no kernel at all);
-  11. the kernels line: launches on the four paths, in this order
+  12, 13. internvl2 (vision, behind 256 patch embeddings) and musicgen
+     (audio, 4 codebooks) in f32 at 2 layers: prefill with the flash
+     kernel vs the dense path, engine first-token logits vs prefill,
+     staggered joins; 12b, 13b. each served in bf16 as in phase 6 (4
+     requests), then the profile of its serving ticks;
+  14. training in f32: one make_train_step step's gradients, internvl2
+     at 2 layers with the flash kernel vs dense attention, and one
+     hymba layer on the card (all three kernels, under remat none, dots
+     and full) vs on the CPU; 14b. four bf16 steps of internvl2 at full
+     size (AdamW, cosine schedule, remat full, 2 microbatches);
+  11. the kernels line: launches on the seven paths, in this order
      (phases 5-6, the dense path; 7-7c, the moe path; 10-10b, the hybrid
-     path; 8-9, the ssm path), each path's counts set to 0 just before
+     path; 12-12b, vision; 13-13b, audio; 14-14b, train; 8-9, the ssm
+     path), each path's counts set to 0 just before
      it and read just after and checked, and each kernel's time at its
      paths' shapes (taken after phase 4b) beside its plain version, a
      PyTorch library call computing the same function where there is
@@ -86,6 +99,11 @@ HYBRID_ARCH = "hymba-1.5b"
 # so both run at full width and reduced depth: ~56.2 and ~42.6 GB.
 MOE_DEPTH = {"arctic-480b": 2, "grok-1-314b": 4}
 MOE_F32_ARCH = "grok-1-314b"       # at 1 layer in f32: ~19.7 GB + 6.4 outside
+VISION_ARCH = "internvl2-1b"
+AUDIO_ARCH = "musicgen-medium"
+FRONTEND_F32_LAYERS = 2            # the frontends' and the training f32 checks
+TRAIN_STEPS = 4                    # internvl2-1b's bf16 steps at full size
+FRONTEND_REQUESTS = 4              # the frontends' serving requests
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
@@ -307,7 +325,8 @@ def phase_build():
 def phase_rmsnorm(gen):
     """At every width the main paths give the kernel: danube's d_model
     2560, arctic's 7168 and grok's 6144, mamba2's d_model 1536 and
-    d_inner 3072 (the gated norm), hymba's 1600 and 3200. Norm weights
+    d_inner 3072 (the gated norm), hymba's 1600 and 3200, internvl2's
+    896 (musicgen's 1536 is mamba2's). Norm weights
     near their init value of 1. The plain version runs on
     the same inputs in f32 (its final cast left out): kernel and plain
     differ in the last f32 bit (reduction order, rsqrt), and two bf16
@@ -318,7 +337,7 @@ def phase_rmsnorm(gen):
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     worst, n = {}, 0
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-        for D in (1536, 1600, 2560, 3072, 3200, 6144, 7168):
+        for D in (896, 1536, 1600, 2560, 3072, 3200, 6144, 7168):
             for rows in (1, 4, 64, 4096, 8192):
                 x = torch.randn(rows, D, device=DEVICE, generator=gen).to(dtype)
                 s = 1 + 0.1 * torch.randn(D, device=DEVICE, generator=gen)
@@ -372,7 +391,9 @@ def phase_flash(gen):
               (1, 2048, 25, 5, 64, True, 1024),    # hymba's prefill: 25/5 heads
               (1, 4096, 32, 8, 80, True, 4096),    # danube: the window binds at the end
               (1, 2048, 56, 8, 128, True, 0),      # arctic's prefill: group 7
-              (1, 2048, 48, 8, 128, True, 0)]      # grok's prefill: group 6
+              (1, 2048, 48, 8, 128, True, 0),      # grok's prefill: group 6
+              (1, 2048, 14, 2, 64, True, 0),       # internvl2's prefill: group 7, d 64
+              (1, 2048, 24, 24, 64, True, 0)]      # musicgen's prefill: group 1
     worst, worst_row = {}, {}
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         row_tol = FLASH_ROW_REL_TOL[str(dtype)]
@@ -534,8 +555,10 @@ def norms_per_tick(cfg, C):
 
 def engine_first_token(cfg, params, prompt, lk, chunk):
     """ServeEngine chunked-prefill first-token logits vs ``lk``, the
-    last-position logits of lm.prefill on the same prompt. Returns the
-    relative error and the engine's ticks."""
+    last-position logits of lm.prefill on the same prompt (for the audio
+    family on the prompt broadcast to every codebook, as the engine feeds
+    it; all codebooks compared, codebook 0 sampled). Returns the relative
+    error and the engine's ticks."""
     import torch
     from repro_torch.serve.engine import ServeEngine
     S = len(prompt)
@@ -551,7 +574,8 @@ def engine_first_token(cfg, params, prompt, lk, chunk):
     err = rel_err(first, lk[0, 0])
     check(err <= 2e-3, f"{cfg.name} engine first-token logits vs prefill: "
                        f"rel err {err} > 2e-3")
-    check(r.generated[0] == int(lk[0, 0].argmax()), "first greedy token differs")
+    sampled = lk[0, 0, 0] if cfg.frontend == "audio" else lk[0, 0]
+    check(r.generated[0] == int(sampled.argmax()), "first greedy token differs")
     return err, eng.steps
 
 
@@ -778,14 +802,254 @@ def phase_moe_f32(rng):
     return want
 
 
-def phase_serve_bf16(rng, arch, layers=None):
-    """Serving in bf16 through the Router: 8 requests, prompts uniform in
-    64-512 tokens, 32 new tokens, 4 slots, chunk 16, max_len 1024; before
-    it, a bf16 2048-token lm.prefill (for the moe family with its drop
-    count) and, for the ssm family, two more on the same prompt
-    (:func:`prefill_timing`). ``layers`` cuts the depth. Returns the
-    config, the parameters, the prefill timing (None for other families)
-    and the serving stats."""
+def phase_frontend_f32(rng, arch):
+    """internvl2-1b (vision) or musicgen-medium (audio) at full width and
+    FRONTEND_F32_LAYERS layers in f32: lm.prefill with the flash kernel vs
+    the dense attention path on a 512-token prompt (vision behind 256
+    random patch embeddings, 768 positions; audio on random codes of 4
+    codebooks); the ServeEngine's chunked-prefill first-token logits vs
+    lm.prefill on the text alone (audio: the prompt broadcast to every
+    codebook, as the engine feeds it); greedy tokens alone vs beside
+    staggered joins. Returns the kernel launches these calls make, from
+    their structure."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    cfg = get_config(arch).replace(num_layers=FRONTEND_F32_LAYERS, param_dtype="float32",
+                                   compute_dtype="float32")
+    params = lm.init_params(cfg, SEED, DEVICE)
+    S = 512
+    batch = prompt_batch(cfg, rng, S)
+    prompt = rng.randint(0, cfg.vocab_size, size=S).tolist()
+    text = torch.tensor([prompt], device=DEVICE)
+    if cfg.frontend == "audio":
+        text = text[..., None].expand(1, S, cfg.num_codebooks)
+    with torch.no_grad():
+        lk, ck = lm.prefill(cfg, params, batch, attention_impl="kernel")
+        ld, _ = lm.prefill(cfg, params, batch, attention_impl="dense")
+        lt, _ = lm.prefill(cfg, params, {"tokens": text}, attention_impl="kernel")
+    e1 = rel_err(lk, ld)
+    check(bool(torch.isfinite(lk).all()) and e1 <= 1e-3,
+          f"{cfg.name} prefill kernel vs dense: rel err {e1} > 1e-3")
+    n_pos = S + (cfg.num_patches if cfg.frontend == "vision" else 0)
+    check(int(ck["pos"][0]) == n_pos,
+          f"{cfg.name} prefill clock {int(ck['pos'][0])} != {n_pos}")
+    e2, ticks = engine_first_token(cfg, params, prompt, lt, 128)
+    n, ticks2 = staggered_tokens_equal(cfg, params, rng)
+    log(f"[{cfg.frontend} f32] {cfg.name} {cfg.num_layers} of "
+        f"{get_config(arch).num_layers} layers, d_model {cfg.d_model}, heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} of {cfg.resolved_head_dim}, vocab "
+        f"{cfg.vocab_size}: prefill over {n_pos} positions, kernel vs dense rel err "
+        f"{e1:.3g}; engine first-token vs prefill rel err {e2:.3g}; staggered greedy "
+        f"tokens equal ({n})")
+    # flash in the two kernel prefills; 3L+1 RMSNorm in each of the three
+    # prefills (kernel_prefill_launches) and 2L+1 per engine tick
+    L = cfg.num_layers
+    want = {"flash_attention": 2 * L, "ssd_chunk": 0,
+            "rmsnorm": 3 * (3 * L + 1) + (ticks + ticks2) * norms_per_tick(cfg, 1)}
+    del params
+    torch.cuda.empty_cache()
+    return want
+
+
+def leaves_by_path(tree, prefix=""):
+    """{"a/b/c": leaf} of a nested dict."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(leaves_by_path(v, f"{prefix}/{k}" if prefix else k))
+        return out
+    return {prefix: tree}
+
+
+def device_batch(batch):
+    """A numpy batch (SyntheticLMData's) as tensors on the card."""
+    import torch
+    return {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
+
+
+def train_grads(cfg, optimizer, state, batch, **step_kw):
+    """One make_train_step step of ``state`` on ``batch``: the gradients
+    its ``grad_transform`` hook is handed (averaged, before clipping) and
+    the step's metrics. ``state`` itself is not changed."""
+    from repro_torch.train.train_step import StepConfig, make_train_step
+    seen = []
+
+    def keep(grads):
+        seen.append(grads)
+        return grads
+
+    _, metrics = make_train_step(cfg, optimizer, StepConfig(**step_kw), keep)(state, batch)
+    return seen[0], metrics
+
+
+def check_grads(got, want, what) -> float:
+    """Every leaf of ``got`` present, finite and not all zero, and within
+    1e-3 of that leaf's largest |g| in ``want``. Returns the worst ratio."""
+    import torch
+    got, want = leaves_by_path(got), leaves_by_path(want)
+    check(sorted(got) == sorted(want), f"{what}: grad leaves {sorted(got)} != {sorted(want)}")
+    worst = 0.0
+    for name, w in want.items():
+        g = got[name]
+        check(g is not None and bool(torch.isfinite(g).all()),
+              f"{what}: {name}: grad missing or not finite")
+        scale = float(w.float().abs().max())
+        check(scale > 0 and float(g.float().abs().max()) > 0, f"{what}: {name}: grad all zero")
+        ratio = float((g.float().cpu() - w.float().cpu()).abs().max()) / scale
+        check(ratio <= 1e-3, f"{what}: {name}: max abs err {ratio:.3g} of max |g| > 1e-3")
+        worst = max(worst, ratio)
+    return worst
+
+
+def phase_train_f32():
+    """Training in f32, the gradients of one make_train_step step:
+
+    * internvl2-1b at full width and 2 layers, AdamW, remat "full", a
+      batch of 2 x (256 patch embeddings + 256 tokens) from the port's
+      SyntheticLMData: the flash kernel's step vs the dense attention
+      path's, both on the card;
+    * hymba-1.5b at full width and 1 layer, S = 512, on the card (flash,
+      SSD and RMSNorm kernels under their autograd wrappers) under remat
+      none, dots and full vs the step on the CPU (the plain versions).
+
+    Loss within 1e-3 relative; every gradient leaf present, not all zero
+    and within 1e-3 of its largest magnitude. Returns the launches, from
+    the structure: per layer body one flash (and SSD) launch and its
+    norms, twice under remat (the recompute reruns the forward), and
+    the final norm once."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.schedule import constant_schedule
+    from repro_torch.train.train_step import init_train_state
+    opt = AdamW(constant_schedule(1e-4))
+
+    vcfg = get_config(VISION_ARCH).replace(num_layers=FRONTEND_F32_LAYERS,
+                                           param_dtype="float32", compute_dtype="float32")
+    state = init_train_state(vcfg, opt, SEED, DEVICE)
+    batch = device_batch(SyntheticLMData(vcfg, 2, 256, seed=SEED).batch(0))
+    gk, mk = train_grads(vcfg, opt, state, batch, remat="full", attention_impl="kernel")
+    gd, md = train_grads(vcfg, opt, state, batch, remat="full", attention_impl="dense")
+    e_loss = abs(float(mk["loss"]) - float(md["loss"])) / abs(float(md["loss"]))
+    check(math.isfinite(float(mk["loss"])) and e_loss <= 1e-3,
+          f"{vcfg.name} train loss kernel vs dense: rel err {e_loss} > 1e-3")
+    e_vis = check_grads(gk, gd, f"{vcfg.name} train grads kernel vs dense")
+    L = vcfg.num_layers
+    want = [{"flash_attention": 2 * L, "ssd_chunk": 0, "rmsnorm": 2 * 2 * L + 1},
+            {"flash_attention": 0, "ssd_chunk": 0, "rmsnorm": 2 * 2 * L + 1}]
+    del state, gk, gd
+    torch.cuda.empty_cache()
+
+    hcfg = get_config(HYBRID_ARCH).replace(num_layers=1, param_dtype="float32",
+                                           compute_dtype="float32")
+    state = init_train_state(hcfg, opt, SEED, DEVICE)
+    batch = device_batch(SyntheticLMData(hcfg, 1, 512, seed=SEED).batch(0))
+    g_cpu, m_cpu = train_grads(hcfg, opt, tree_map(lambda a: a.cpu(), state),
+                               tree_map(lambda a: a.cpu(), batch), remat="none",
+                               attention_impl="kernel")
+    e_hyb = {}
+    for remat in ("none", "dots", "full"):
+        g, m = train_grads(hcfg, opt, state, batch, remat=remat, attention_impl="kernel")
+        e_l = abs(float(m["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
+        check(e_l <= 1e-3, f"{hcfg.name} train loss card ({remat}) vs CPU: rel err {e_l}")
+        e_hyb[remat] = check_grads(g, g_cpu, f"{hcfg.name} train grads card ({remat}) vs CPU")
+        passes = 1 if remat == "none" else 2
+        want.append({"flash_attention": passes, "ssd_chunk": passes,
+                     "rmsnorm": 3 * passes + 1})
+    log(f"[train f32] {vcfg.name} {L} layers, batch 2 x ({vcfg.num_patches} patches + "
+        f"256 tokens), AdamW, remat full: loss {float(mk['loss']):.6g}, kernel vs dense "
+        f"loss rel err {e_loss:.3g}, worst grad leaf err / max |g| {e_vis:.3g}; "
+        f"{hcfg.name} 1 layer, S 512, card (three kernels) vs CPU (plain): worst grad "
+        f"leaf err / max |g| by remat {json.dumps(e_hyb)}")
+    del state
+    torch.cuda.empty_cache()
+    return add_launches(*want)
+
+
+def phase_train_bf16():
+    """internvl2-1b at full width and depth in bf16: TRAIN_STEPS steps of
+    make_train_step, AdamW on a cosine schedule, remat "full", the flash
+    kernel, 2 microbatches of a batch of 4 x (256 patch embeddings + 256
+    tokens) from the port's SyntheticLMData. Checks loss, grad norm and
+    every parameter finite and every weight changed; logs each step's
+    loss and ms (CUDA events) and the peak memory. Returns the launches:
+    per microbatch 2L flash and 4L+1 RMSNorm (remat reruns the layer
+    bodies' forward)."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.schedule import cosine_schedule
+    from repro_torch.train.train_step import StepConfig, init_train_state, make_train_step
+    cfg = get_config(VISION_ARCH)
+    check(cfg.param_dtype == "bfloat16" and cfg.compute_dtype == "bfloat16",
+          f"{cfg.name} trains in bf16")
+    opt = AdamW(cosine_schedule(3e-4, warmup_steps=1, total_steps=TRAIN_STEPS))
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, opt, SEED, DEVICE)
+    first = {k: v.clone() for k, v in leaves_by_path(state["params"]).items()}
+    data = SyntheticLMData(cfg, 4, 256, seed=SEED)
+    step = make_train_step(cfg, opt, StepConfig(microbatches=2, remat="full",
+                                                attention_impl="kernel"))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    steps = []
+    for i in range(TRAIN_STEPS):
+        batch = device_batch(data.batch(i))
+        start.record()
+        state, m = step(state, batch)
+        end.record()
+        end.synchronize()
+        steps.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                      "ms": start.elapsed_time(end)})
+        check(math.isfinite(steps[-1]["loss"]) and math.isfinite(steps[-1]["grad_norm"]),
+              f"{cfg.name} bf16 train step {i}: {steps[-1]}")
+    params = leaves_by_path(state["params"])
+    for name, p in params.items():
+        check(bool(torch.isfinite(p).all()), f"{cfg.name} bf16 train: {name} not finite")
+        # every weight moves; a norm scale (1.0 at init) moves by about lr
+        # per step, under half a bf16 step at 1.0 (2^-8), so it may not
+        if not name.endswith("scale"):
+            check(not torch.equal(p, first[name]), f"{cfg.name} bf16 train: {name} unchanged")
+    changed = sum(not torch.equal(p, first[name]) for name, p in params.items())
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "params": sum(
+        p.numel() for p in params.values()), "batch": 4, "microbatches": 2,
+        "positions": cfg.num_patches + 256, "remat": "full", "optimizer": "adamw, cosine",
+        "steps": steps, "leaves_changed": f"{changed} of {len(params)}",
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    log(f"[train bf16] {json.dumps(out)}")
+    L = cfg.num_layers
+    mb = 2 * TRAIN_STEPS
+    del state, first, params
+    torch.cuda.empty_cache()
+    return {"flash_attention": mb * 2 * L, "ssd_chunk": 0, "rmsnorm": mb * (4 * L + 1)}
+
+
+def prompt_batch(cfg, rng, S):
+    """lm.prefill's inputs for a random S-token prompt on the card: ids
+    (1, S), codes (1, S, ncb) for the audio family, and for the vision
+    family ``num_patches`` random patch embeddings in front of the text."""
+    import torch
+    shape = (1, S, cfg.num_codebooks) if cfg.frontend == "audio" else (1, S)
+    batch = {"tokens": torch.tensor(rng.randint(0, cfg.vocab_size, size=shape),
+                                    device=DEVICE)}
+    if cfg.frontend == "vision":
+        pe = rng.standard_normal((1, cfg.num_patches, cfg.vit_dim)).astype("float32")
+        batch["patch_embeds"] = torch.tensor(pe, device=DEVICE)
+    return batch
+
+
+def phase_serve_bf16(rng, arch, layers=None, requests=8):
+    """Serving in bf16 through the Router: ``requests`` requests, prompts
+    uniform in 64-512 tokens, 32 new tokens, 4 slots, chunk 16, max_len
+    1024; before it, a bf16 2048-token lm.prefill (for the moe family
+    with its drop count; for vision behind 256 patch embeddings, for
+    audio on 4 codebooks) and, for the ssm family, two more on the same
+    prompt (:func:`prefill_timing`). ``layers`` cuts the depth. Returns
+    the config, the parameters, the prefill timing (None for other
+    families) and the serving stats."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import launch_counts
@@ -800,11 +1064,11 @@ def phase_serve_bf16(rng, arch, layers=None):
     check(cfg.param_dtype == "bfloat16" and cfg.compute_dtype == "bfloat16",
           f"{arch} serves in bf16")
     params = lm.init_params(cfg, SEED, DEVICE)
-    toks = torch.tensor([rng.randint(0, cfg.vocab_size, size=2048).tolist()],
-                        device=DEVICE)
+    batch = prompt_batch(cfg, rng, 2048)
+    toks = batch["tokens"]
     before = launch_counts()
     with torch.no_grad(), DropCounter() as drops:
-        lk, _ = lm.prefill(cfg, params, {"tokens": toks}, attention_impl="kernel")
+        lk, _ = lm.prefill(cfg, params, batch, attention_impl="kernel")
     check(bool(torch.isfinite(lk.float()).all()), "bf16 prefill logits not finite")
     if cfg.num_experts > 0:
         log(f"[prefill bf16] {cfg.name} {cfg.num_layers} of {full_depth} layers, 2048 "
@@ -826,7 +1090,7 @@ def phase_serve_bf16(rng, arch, layers=None):
     finite = torch.ones((), dtype=torch.bool, device=DEVICE)
     seen, widths = [], []
     capture_logits(eng, seen, widths)
-    lens = rng.randint(64, 513, size=8)
+    lens = rng.randint(64, 513, size=requests)
     norms_before = launch_counts()["rmsnorm"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -840,7 +1104,8 @@ def phase_serve_bf16(rng, arch, layers=None):
     for lg in seen:
         finite &= torch.isfinite(lg).all()
     norms = launch_counts()["rmsnorm"] - norms_before
-    check(len(done) == 8 and all(r.done for r in done), "not every request completed")
+    check(len(done) == requests and all(r.done for r in done),
+          "not every request completed")
     check(bool(finite), "non-finite logits while serving")
     want = sum(norms_per_tick(cfg, C) for C in widths)
     check(len(widths) == eng.steps and norms == want,
@@ -848,7 +1113,7 @@ def phase_serve_bf16(rng, arch, layers=None):
     gen = sum(len(r.generated) for r in done)
     snap = slo.arm_snapshot("baseline")
     stats = {"arch": arch, "layers": cfg.num_layers, "full_depth_layers": full_depth,
-             "requests": 8, "prompt_lens": [int(n) for n in lens],
+             "requests": requests, "prompt_lens": [int(n) for n in lens],
              "new_tokens": 32, "slots": 4, "prefill_chunk": 16,
              "generated_tokens": gen, "ticks": eng.steps, "wall_s": wall,
              "tokens_per_s": gen / wall, "ms_per_tick": 1e3 * wall / eng.steps,
@@ -956,17 +1221,19 @@ def phase_kernel_times(gen):
     from repro_torch.kernels.ssd_scan.ops import ssd_chunk
     from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref
     cfg, ssm_cfg = get_config(ARCH), get_config(SSM_ARCH)
+    vision, audio = get_config(VISION_ARCH), get_config(AUDIO_ARCH)
 
     # RMSNorm at danube's serving tick (4 slots x a 16-token chunk, d_model
     # 2560), and at mamba2's, which makes most of the launches: the gated
     # norm of every ssd_decode step (4 slots, d_inner 3072) and norm1 of a
-    # 16-token tick (d_model 1536)
+    # 16-token tick (d_model 1536, musicgen's too); internvl2's tick (896)
     shapes = [((4, 16, cfg.d_model), cfg.norm_eps),
               ((4, ssm_cfg.ssm_d_inner), ssm_cfg.norm_eps),
-              ((4, 16, ssm_cfg.d_model), ssm_cfg.norm_eps)]
+              ((4, 16, ssm_cfg.d_model), ssm_cfg.norm_eps),
+              ((4, 16, vision.d_model), vision.norm_eps)]
     inputs = [rmsnorm_inputs(gen, shape) for shape, _ in shapes]
     # kernel and F.rms_norm in alternating windows ("ms", "library_ms" and
-    # the per-round ratio's median and spread), all three before this
+    # the per-round ratio's median and spread), all of them before this
     # run's first profiler session, then the gated norm's pair again after
     # the sessions that read device_ms
     pairs = [rmsnorm_vs_library(x, s, eps) for (x, s), (_, eps) in zip(inputs, shapes)]
@@ -989,7 +1256,8 @@ def phase_kernel_times(gen):
         "replaces": "src/repro/kernels/rmsnorm/rmsnorm.py:24",
         **rms[0],
         "by_shape": [{"use": f"{SSM_ARCH} gated norm, every ssd_decode step", **rms[1]},
-                     {"use": f"{SSM_ARCH} norm1, a 16-token tick", **rms[2]}]}]
+                     {"use": f"{SSM_ARCH} norm1, a 16-token tick", **rms[2]},
+                     {"use": f"{VISION_ARCH} norm1, a 16-token tick", **rms[3]}]}]
 
     # flash attention at the 2048-token prefill of danube in bf16 (the
     # tensor-core kernel) and f32 (the scalar kernel), and at hymba's
@@ -1062,7 +1330,13 @@ def phase_kernel_times(gen):
                         hymba.resolved_head_dim, hymba.sliding_window, torch.bfloat16)},
             {"use": "arctic-480b bf16 prefill, group 7, d 128",
              **flash_at(1, 2048, arctic.num_heads, arctic.num_kv_heads,
-                        arctic.resolved_head_dim, 0, torch.bfloat16)}]})
+                        arctic.resolved_head_dim, 0, torch.bfloat16)},
+            {"use": f"{VISION_ARCH} bf16 prefill, group 7, d 64",
+             **flash_at(1, 2048, vision.num_heads, vision.num_kv_heads,
+                        vision.resolved_head_dim, 0, torch.bfloat16)},
+            {"use": f"{AUDIO_ARCH} bf16 prefill, group 1 (as many kv heads as q heads)",
+             **flash_at(1, 2048, audio.num_heads, audio.num_kv_heads,
+                        audio.resolved_head_dim, 0, torch.bfloat16)}]})
 
     # the SSD chunk at mamba2's 2048-token prefill: x bf16, the rest f32,
     # the decays of mamba2's init. Least work: C.B^T once per chunk and,
@@ -1248,6 +1522,34 @@ def main() -> int:
     check(paths["hybrid"] == want_h, f"hybrid path launches {paths['hybrid']} != {want_h}")
     del params
     torch.cuda.empty_cache()
+
+    # the vision and audio paths: phases 12-12b and 13-13b, each counted
+    # exactly: its f32 phase (from the structure) and its serving phase's
+    # kernel prefill (L flash, 3L+1 RMSNorm) and ticks (2L+1 RMSNorm each,
+    # checked in the phase); then the profile of each one's serving ticks
+    for path, arch in (("vision", VISION_ARCH), ("audio", AUDIO_ARCH)):
+        reset_launch_counts()
+        want_f = timed(f"{path} f32", phase_frontend_f32, rng, arch)
+        fcfg, params, _, stats = timed(f"serve bf16 {arch}", phase_serve_bf16, rng, arch,
+                                       None, FRONTEND_REQUESTS)
+        paths[path] = launch_counts()
+        want = add_launches(want_f, kernel_prefill_launches(fcfg),
+                            {"flash_attention": 0, "ssd_chunk": 0,
+                             "rmsnorm": stats["rmsnorm_launches_serving"]})
+        log(f"[{path} path] kernel launches: {paths[path]}")
+        check(paths[path] == want, f"{path} path launches {paths[path]} != {want}")
+        timed(f"profile {arch}", phase_profile, fcfg, params, rng)
+        del params
+        torch.cuda.empty_cache()
+
+    # the train path: phase 14 (f32 gradients) and 14b (bf16 steps at full
+    # size), counted exactly, remat's recompute launches included
+    reset_launch_counts()
+    want = [timed("train f32", phase_train_f32), timed("train bf16", phase_train_bf16)]
+    paths["train"] = launch_counts()
+    log(f"[train path] kernel launches: {paths['train']}")
+    check(paths["train"] == add_launches(*want),
+          f"train path launches {paths['train']} != {add_launches(*want)}")
 
     reset_launch_counts()                      # the ssm path: phases 8-9
     timed("ssm f32", phase_ssm_f32, rng)

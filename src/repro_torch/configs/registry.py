@@ -1,9 +1,7 @@
 """Architecture registry: --arch <id> -> ModelConfig (+ reduced smoke configs).
 
-The port's registry holds the families its slices so far serve: dense,
-moe, ssm and hybrid. The other architectures of the JAX package are known by
-name and raise ``NotImplementedError`` naming the ``ROADMAP.md`` slice
-that ports them.
+Every architecture of the JAX package's registry: the dense, moe, ssm
+and hybrid families and the vision and audio frontends.
 """
 
 from __future__ import annotations
@@ -13,9 +11,10 @@ from typing import Dict
 
 from ..models.config import ModelConfig
 from . import (arctic_480b, grok_1_314b, h2o_danube_1_8b, hymba_1_5b,
-               mamba2_780m, phi3_medium_14b, qwen1_5_110b, yi_34b)
+               internvl2_1b, mamba2_780m, musicgen_medium, phi3_medium_14b,
+               qwen1_5_110b, yi_34b)
 
-__all__ = ["ARCHS", "LATER_SLICES", "get_config", "smoke_config"]
+__all__ = ["ARCHS", "get_config", "smoke_config"]
 
 ARCHS: Dict[str, ModelConfig] = {
     "yi-34b": yi_34b.CONFIG,
@@ -26,20 +25,12 @@ ARCHS: Dict[str, ModelConfig] = {
     "grok-1-314b": grok_1_314b.CONFIG,
     "mamba2-780m": mamba2_780m.CONFIG,
     "hymba-1.5b": hymba_1_5b.CONFIG,
-}
-
-# Architectures of the JAX package that later slices of the port add.
-LATER_SLICES: Dict[str, str] = {
-    "internvl2-1b": "slice 4 (vision and audio frontends)",
-    "musicgen-medium": "slice 4 (vision and audio frontends)",
+    "internvl2-1b": internvl2_1b.CONFIG,
+    "musicgen-medium": musicgen_medium.CONFIG,
 }
 
 
 def get_config(name: str) -> ModelConfig:
-    if name in LATER_SLICES:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet: it comes with "
-            f"{LATER_SLICES[name]} in ROADMAP.md")
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHS)}")
     return ARCHS[name]
@@ -48,8 +39,8 @@ def get_config(name: str) -> ModelConfig:
 def smoke_config(name: str) -> ModelConfig:
     """Reduced same-family config: small layers/width/vocab.
 
-    The same reduction as the JAX package's ``smoke_config`` for the
-    families the port serves, so both sides build the same small model.
+    The same reduction as the JAX package's ``smoke_config``, so both
+    sides build the same small model.
     """
     cfg = get_config(name)
     kw = dict(
@@ -69,4 +60,8 @@ def smoke_config(name: str) -> ModelConfig:
         kw.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=16, ssm_expand=2)
     if cfg.sliding_window > 0:
         kw.update(sliding_window=16)
+    if cfg.frontend == "vision":
+        kw.update(vit_dim=32, num_patches=8)
+    if cfg.frontend == "audio":
+        kw.update(num_codebooks=2, vocab_size=64)
     return dataclasses.replace(cfg, **kw)

@@ -1,1 +1,1 @@
-"""Model definitions of the port (dense family)."""
+"""Model definitions of the port: configs, layers, the full language models."""

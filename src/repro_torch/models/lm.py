@@ -1,28 +1,36 @@
 """Full language models, PyTorch: params, forward, loss, prefill, decode.
 
-The dense, moe, ssm and hybrid subset of the JAX package's
-``models/lm.py``. The per-layer body is
+The port of the JAX package's ``models/lm.py``. The per-layer body is
 
   dense   : x += attn(n1(x));  x += mlp(n2(x))
   moe     : x += attn(n1(x));  x += moe(n2(x))   (+ aux losses)
   ssm     : x += ssd(n1(x))                       (attention-free)
   hybrid  : x += (attn(n1(x)) + ssd(n1(x)))/2;  x += mlp(n2(x))  (hymba)
 
+and the vlm and audio families run the dense body behind their
+frontends, which take precomputed embeddings as in JAX:
+
+  vision (internvl2): patch embeddings (B, P, vit_dim) -> MLP projector ->
+    prepended to the text sequence; labels on text only.
+  audio (musicgen): codebook token streams (B, S, ncb) -> summed
+    embeddings; per-codebook logit heads.
+
 Parameters keep the JAX tree: layer parameters are stacked with a
 leading ``L`` dimension under ``layers``, and where JAX scans over that
 dimension the port loops over indexed slices. Caches are updated in
-place where the JAX serving path donates them.
-
-``remat`` is accepted for signature parity and ignored until training
-is ported. The frontend families (vlm, audio) raise
-``NotImplementedError``: a later slice of ``ROADMAP.md`` ports them.
+place where the JAX serving path donates them. ``forward``'s ``remat``
+checkpoints each layer body as JAX's ``jax.checkpoint`` does.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
 from .config import ModelConfig
@@ -35,16 +43,6 @@ from .modules import Builder, Mode, normal_init
 
 Params = Dict[str, Any]
 Device = Union[str, torch.device, None]
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
-            or cfg.hybrid != (cfg.family == "hybrid")
-            or (cfg.num_experts > 0) != (cfg.family == "moe")
-            or cfg.frontend != "none"):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            f"(dense, moe, ssm and hybrid only; see the slices in ROADMAP.md)")
 
 
 def _has_ssd(cfg: ModelConfig) -> bool:
@@ -64,7 +62,6 @@ def _layer(tree: Any, li: int) -> Any:
 
 
 def build_layer(b: Builder, cfg: ModelConfig) -> Params:
-    _check_family(cfg)
     p: Params = {"norm1": build_rmsnorm(b, "norm1", cfg.d_model)}
     if cfg.family == "ssm":
         p["ssd"] = build_ssd(b, cfg)
@@ -83,11 +80,27 @@ def build_layer(b: Builder, cfg: ModelConfig) -> Params:
 def build_params(b: Builder, cfg: ModelConfig) -> Params:
     p: Params = {}
     with b.scope("model"):
-        p["embed"] = b.param("embed", (cfg.vocab_size, cfg.d_model),
-                             ("vocab_tp", "embed"), normal_init(0.02))
-        if not cfg.tie_embeddings:
-            p["head"] = b.param("head", (cfg.d_model, cfg.vocab_size),
-                                ("embed", "vocab_tp"), normal_init(0.02))
+        if cfg.frontend == "audio":
+            p["embed"] = b.param("embed", (cfg.num_codebooks, cfg.vocab_size,
+                                           cfg.d_model),
+                                 ("codebooks", "vocab_tp", "embed"),
+                                 normal_init(0.02))
+            p["head"] = b.param("head", (cfg.num_codebooks, cfg.d_model,
+                                         cfg.vocab_size),
+                                ("codebooks", "embed", "vocab_tp"),
+                                normal_init(0.02))
+        else:
+            p["embed"] = b.param("embed", (cfg.vocab_size, cfg.d_model),
+                                 ("vocab_tp", "embed"), normal_init(0.02))
+            if not cfg.tie_embeddings:
+                p["head"] = b.param("head", (cfg.d_model, cfg.vocab_size),
+                                    ("embed", "vocab_tp"), normal_init(0.02))
+        if cfg.frontend == "vision":
+            with b.scope("projector"):
+                p["proj_in"] = b.param("in", (cfg.vit_dim, cfg.d_model),
+                                       ("vit", "embed"), normal_init(0.02))
+                p["proj_hidden"] = b.param("hidden", (cfg.d_model, cfg.d_model),
+                                           ("embed", "act_embed"), normal_init(0.02))
         with b.scope("layers"), b.stacked(cfg.num_layers):
             p["layers"] = build_layer(b, cfg)
         p["final_norm"] = build_rmsnorm(b, "final_norm", cfg.d_model)
@@ -166,21 +179,35 @@ def layer_apply(cfg: ModelConfig, lp: Params, x: torch.Tensor,
 
 def embed_tokens(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor]
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (x (B,S,D), positions (S,)). Tokens must lie in
-    [0, vocab): ``jnp.take`` fills the row of an out-of-range id with
-    NaN (and wraps -1 to the last row), torch indexing raises on the CPU
-    and asserts on the device, so the serving engine rejects such ids at
-    submit."""
-    _check_family(cfg)
-    tokens = batch["tokens"]
-    x = p["embed"][tokens.long()].to(cfg.compute_torch_dtype())
+    """Returns (x (B,S,D), positions (S,)); with ``patch_embeds`` (vision)
+    S counts the image prefix. Tokens must lie in [0, vocab): ``jnp.take``
+    fills the row of an out-of-range id with NaN (and wraps -1 to the
+    last row), torch indexing raises on the CPU and asserts on the
+    device, so the serving engine rejects such ids at submit."""
+    cdt = cfg.compute_torch_dtype()
+    tokens = batch["tokens"].long()
+    if cfg.frontend == "audio":                                  # (B,S,ncb)
+        x = torch.zeros(tokens.shape[:2] + (cfg.d_model,), dtype=cdt,
+                        device=tokens.device)
+        for c in range(cfg.num_codebooks):
+            x = x + p["embed"][c][tokens[..., c]].to(cdt)
+    else:
+        x = p["embed"][tokens].to(cdt)
+    if cfg.frontend == "vision" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(cdt)                       # (B,P,vit)
+        img = F.gelu(pe @ p["proj_in"].to(cdt), approximate="tanh")  # jax.nn.gelu
+        x = torch.cat([img @ p["proj_hidden"].to(cdt), x], dim=1)
     S = x.shape[1]
     return x, torch.arange(S, dtype=torch.int32, device=x.device)
 
 
 def lm_head(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """(B,S,V); audio (B,S,ncb,V)."""
+    cdt = cfg.compute_torch_dtype()
+    if cfg.frontend == "audio":
+        return torch.einsum("bsd,cdv->bscv", x, p["head"].to(cdt))
     w = p["embed"].T if cfg.tie_embeddings else p["head"]
-    return torch.einsum("bsd,dv->bsv", x, w.to(cfg.compute_torch_dtype()))
+    return torch.einsum("bsd,dv->bsv", x, w.to(cdt))
 
 
 # ---------------------------------------------------------------------------
@@ -188,17 +215,55 @@ def lm_head(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``remat="dots"``: keep the results of matrix products without batch
+    dimensions (``mm``/``addmm``, as JAX's
+    ``checkpoint_dots_with_no_batch_dims``) and recompute the rest; the
+    kernels' outputs are recomputed with it, since their launches are no
+    ATen op this policy could keep."""
+    if op in _SAVED_BY_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(remat: str, body):
+    """The layer body under ``remat``: ``none``; ``full`` keeps only its
+    inputs and recomputes the rest in the backward; ``dots`` keeps the
+    products of :func:`_save_dots` as well."""
+    if remat == "none":
+        return body
+    if remat == "full":
+        return functools.partial(checkpoint, body, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            checkpoint, body, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_dots))
+    raise ValueError(f"unknown remat {remat!r}; none, dots or full")
+
+
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
             attention_impl: str = "auto", remat: str = "full"
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Logits (B,S,V) (audio (B,S,ncb,V)) and the MoE aux losses. The
+    layer bodies are checkpointed by ``remat`` only where a gradient is
+    being recorded; the values do not depend on it."""
     x, positions = embed_tokens(cfg, params, batch)
     aux_acc: Dict[str, torch.Tensor] = {}
     if cfg.num_experts > 0:
         aux_acc = {name: torch.zeros((), dtype=torch.float32, device=x.device)
                    for name in ("load_balance", "router_z")}
+
+    def body(lp: Params, h: torch.Tensor):
+        return layer_apply(cfg, lp, h, positions, attention_impl)
+
+    if torch.is_grad_enabled():
+        body = _remat(remat, body)
     for li in range(cfg.num_layers):
-        x, aux = layer_apply(cfg, _layer(params["layers"], li), x, positions,
-                             attention_impl)
+        x, aux = body(_layer(params["layers"], li), x)
         for name, v in aux.items():
             aux_acc[name] = aux_acc[name] + v
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -215,6 +280,33 @@ def cross_entropy(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
         return nll.mean()
     w = weights.float()
     return (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def train_loss(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
+               attention_impl: str = "auto", remat: str = "full"
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token cross entropy plus the MoE aux losses; vision
+    scores the text positions only, audio every codebook."""
+    logits, aux = forward(cfg, params, batch, attention_impl, remat)
+    labels = batch["labels"]
+    weights = batch.get("weights")
+    if cfg.frontend == "vision":
+        # logits cover [img_tokens, text]; labels are text-only
+        logits = logits[:, logits.shape[1] - labels.shape[1]:]
+    if cfg.frontend == "audio":
+        loss = cross_entropy(
+            cfg, logits.reshape(logits.shape[0], -1, logits.shape[-1]),
+            labels.reshape(labels.shape[0], -1),
+            None if weights is None
+            else weights.repeat_interleave(cfg.num_codebooks, dim=-1))
+    else:
+        loss = cross_entropy(cfg, logits, labels, weights)
+    metrics = {"ce_loss": loss}
+    for name, v in aux.items():
+        loss = loss + v  # aux coefficients already applied per layer
+        metrics[name] = v
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -235,7 +327,6 @@ def _stacked_ssd_cache(cfg: ModelConfig, slots: int, dev: torch.device
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: Device = None) -> Dict[str, Any]:
     """Dense per-slot decode cache; ``pos`` is a per-slot clock (B,)."""
-    _check_family(cfg)
     dev = resolve_device(device)
     cache: Dict[str, Any] = {"pos": torch.zeros((batch,), dtype=torch.int32,
                                                 device=dev)}
@@ -262,7 +353,6 @@ def init_paged_cache(cfg: ModelConfig, slots: int, num_blocks: int,
     :class:`repro_torch.serve.kvcache.KVCacheManager` and are passed to
     :func:`decode_chunk` per tick.
     """
-    _check_family(cfg)
     dev = resolve_device(device)
     cache: Dict[str, Any] = {}
     if cfg.family != "ssm":
@@ -291,14 +381,14 @@ def decode_chunk(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                  ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Continuous-batching step: C tokens per slot against the paged cache.
 
-    tokens: (B,C); block_table: (B,nb); pos: (B,) per-slot clocks; adv:
-    (B,) real tokens this chunk (0 = idle slot). One call serves mixed
+    tokens: (B,C) [audio: (B,C,ncb)]; block_table: (B,nb); pos: (B,)
+    per-slot clocks; adv: (B,) real tokens this chunk (0 = idle slot). One call serves mixed
     phases. ``zero_blocks`` (fixed width, padded with NB) zero-epochs
     recycled physical blocks; ``reset_slots`` (B,) bool zeroes recycled
     slots' SSD state and conv window (state is cumulative: masking
     alone cannot protect it). The pool and the SSD state are updated in
     place (the JAX engine donates them) and returned in the cache dict.
-    Returns (logits (B,C,V), cache).
+    Returns (logits (B,C,V) [audio (B,C,ncb,V)], cache).
     """
     kv = cache.get("kv")
     ssd = cache.get("ssd")
@@ -332,7 +422,7 @@ def decode_chunk(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                 cache: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One AR step for the whole stack against the dense cache.
-    tokens: (B,1). The cache's K/V and SSD state are written in place;
+    tokens: (B,1) [audio: (B,1,ncb)]. The cache's K/V and SSD state are written in place;
     ``pos`` advances in the returned dict."""
     x, _ = embed_tokens(cfg, params, {"tokens": tokens})
     pos = cache["pos"]
@@ -362,7 +452,8 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     ``ssd_apply(return_state=True)``: JAX runs ``ssd_apply`` a second
     time inside ``layer_apply`` for the layer's output, the port reuses
     the one result (the same numbers, one SSD kernel launch per
-    layer)."""
+    layer). With ``patch_embeds`` (vision) the image prefix is cached
+    like the text: S and the clocks count it."""
     x, positions = embed_tokens(cfg, params, batch)
     B, S, _ = x.shape
     max_len = max_len or S

@@ -12,8 +12,10 @@ Request lifecycle errors are per-request and typed: an invalid submit
 or a cache-bounds breach fails that request with a :class:`ServeError`
 subclass, never the engine, and ``run(max_steps=...)`` fails whatever
 is still unfinished at the cap with :class:`DeadlineExceededError`.
-A prompt with a token id outside ``[0, vocab)`` fails at submit with
-:class:`InvalidTokenError`. This departs from the JAX engine on
+For the audio family each fed token goes to every codebook stream and
+codebook 0's logits are sampled, as in the JAX engine. A prompt with a
+token id outside ``[0, vocab)`` (per codebook for audio) fails at
+submit with :class:`InvalidTokenError`. This departs from the JAX engine on
 purpose: there such a request completes, its tokens drawn from the NaN
 logits that ``jnp.take`` leaves for the id; here the id would fail the
 embedding lookup of the whole tick (a device-side assert on CUDA).
@@ -255,14 +257,21 @@ class ServeEngine:
             else:
                 feed[i, 0] = r.generated[-1]
 
+        tokens = self._tensor(feed)
+        if self.cfg.frontend == "audio":
+            # every codebook stream gets the fed token: a view, no copy
+            tokens = tokens[..., None].expand(-1, -1, self.cfg.num_codebooks)
+
         zb = self.kv.take_zero_blocks()
         rs = self.kv.take_reset_slots()
         logits, self.kv.cache = self._step(
-            self.params, self._tensor(feed), self.kv.cache,
+            self.params, tokens, self.kv.cache,
             self._tensor(self.kv.table), self._tensor(self.kv.pos),
             self._tensor(adv),
             zero_blocks=None if zb is None else self._tensor(zb),
             reset_slots=None if rs is None else self._tensor(rs))
+        if self.cfg.frontend == "audio":
+            logits = logits[:, :, 0]         # sample codebook 0
         # only each slot's last real row is sampled: copy (B, V), not (B, C, V)
         last = torch.from_numpy(np.maximum(adv - 1, 0).astype(np.int64))
         rows = logits[torch.arange(self.slots, device=logits.device),

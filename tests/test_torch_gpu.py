@@ -318,3 +318,73 @@ def test_ssd_kernel_rejects_shapes_it_was_not_built_for(cuda):
     C, B, x, dt, da = ssd_inputs(cuda, 1, 1, 16, 256, 2, 16)
     with pytest.raises(ValueError, match="built for"):
         ssd_chunk(C, B, x, dt, da)
+
+
+# ---------------------------------------------------------------------------
+# The autograd wrappers (training) and the light launch (serving)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_gradients_through_the_kernel(cuda, dtype):
+    """With x and scale requiring grad the kernel's output carries a
+    grad_fn (one launch), and its gradients are the plain version's."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(2, 512, 896, device=cuda, generator=g).to(dtype).requires_grad_(True)
+    s = (1 + 0.1 * torch.randn(896, device=cuda, generator=g)).requires_grad_(True)
+    dy = torch.randn(2, 512, 896, device=cuda, generator=g).to(dtype)
+    before = launch_counts()["rmsnorm"]
+    y = rmsnorm(x, s)
+    assert y.grad_fn is not None and launch_counts()["rmsnorm"] == before + 1
+    got = torch.autograd.grad(y, (x, s), dy)
+    want = torch.autograd.grad(rmsnorm_ref(x, s), (x, s), dy)
+    assert launch_counts()["rmsnorm"] == before + 1        # the backward launches none
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        assert float((a.float() - b.float()).abs().max()) <= 1e-5 * float(b.float().abs().max())
+
+
+@pytest.mark.gpu
+def test_rmsnorm_serving_call_takes_the_light_launch(cuda, monkeypatch):
+    """No grad recorded (no_grad, or no input requiring it): one launch
+    straight into the kernel, no autograd.Function, no graph."""
+    from repro_torch.kernels.rmsnorm import ops
+
+    def refuse(*args):
+        raise AssertionError("the serving call went through the autograd wrapper")
+
+    monkeypatch.setattr(ops._RMSNorm, "apply", refuse)
+    x = torch.randn(4, 16, 896, device=cuda, dtype=torch.bfloat16)
+    s = torch.ones(896, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    before = launch_counts()["rmsnorm"]
+    with torch.no_grad():
+        y = rmsnorm(x, s)
+    assert y.grad_fn is None and launch_counts()["rmsnorm"] == before + 1
+    y = rmsnorm(x, s.detach())
+    assert y.grad_fn is None and launch_counts()["rmsnorm"] == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_gradients_through_the_kernel(cuda, dtype):
+    """hymba's SSD block at S = 512 (2 chunks of 256, 50 heads, N 16):
+    the kernels' outputs carry a grad_fn (one launch), and the gradients
+    of all five inputs are the plain version's (the backward recomputes
+    through it, so only the order of f32 sums may differ)."""
+    C, B, x, dt, da = ssd_inputs(cuda, 1, 2, 256, 16, 50, 64, model_like=True, seed=4)
+    ins = [t.requires_grad_(True) for t in (C, B, x.to(dtype), dt, da)]
+    g = torch.Generator(device=cuda).manual_seed(5)
+    douts = [torch.randn(*shape, device=cuda, generator=g) for shape in
+             ((1, 2, 256, 50, 64), (1, 2, 50, 16, 64), (1, 2, 50))]
+    before = launch_counts()["ssd_chunk"]
+    out = ssd_chunk(*ins)
+    assert all(o.grad_fn is not None for o in out)
+    got = torch.autograd.grad(out, ins, douts)
+    want = torch.autograd.grad(ssd_chunk_ref(*ins), ins, douts)
+    assert launch_counts()["ssd_chunk"] == before + 1
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        assert float((a.float() - b.float()).abs().max()) <= 1e-5 * float(b.float().abs().max())
+    with torch.no_grad():
+        assert all(o.grad_fn is None for o in ssd_chunk(*ins))
+    assert launch_counts()["ssd_chunk"] == before + 2

@@ -1,4 +1,4 @@
-"""The port's dense, moe, ssm and hybrid models against the JAX package, on the CPU.
+"""The port's models, every family, against the JAX package, on the CPU.
 
 First the JAX oracle the port is held against: JAX ``decode_chunk``
 over the paged pool must reproduce JAX ``forward``. Then the port's
@@ -31,8 +31,9 @@ from repro_torch.configs.registry import smoke_config
 from repro_torch.models import lm
 
 ARCHS = ["yi-34b", "h2o-danube-1.8b", "qwen1.5-110b", "arctic-480b", "grok-1-314b",
-         "mamba2-780m", "hymba-1.5b"]
-ORACLE_ARCHS = ["yi-34b", "h2o-danube-1.8b", "arctic-480b", "mamba2-780m", "hymba-1.5b"]
+         "mamba2-780m", "hymba-1.5b", "internvl2-1b", "musicgen-medium"]
+ORACLE_ARCHS = ["yi-34b", "h2o-danube-1.8b", "arctic-480b", "mamba2-780m", "hymba-1.5b",
+                "internvl2-1b", "musicgen-medium"]
 
 
 def f32(cfg):
@@ -76,7 +77,9 @@ def world(arch):
 
 
 def tokens(cfg, B, S, seed=0):
-    return np.random.RandomState(seed).randint(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    """(B, S) ids; (B, S, ncb) codes for the audio family."""
+    shape = (B, S, cfg.num_codebooks) if cfg.frontend == "audio" else (B, S)
+    return np.random.RandomState(seed).randint(0, cfg.vocab_size, shape).astype(np.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -110,7 +113,7 @@ def block_table():
 
 
 def feed(toks, C, adv, pos):
-    f = np.zeros((B, C), np.int32)
+    f = np.zeros((B, C) + toks.shape[2:], np.int32)
     for b in range(B):
         f[b, :adv[b]] = toks[b, pos[b]:pos[b] + adv[b]]
     return f
@@ -419,13 +422,13 @@ def test_paged_cache_layers_are_separate_tensors():
         tcfg.num_layers, 2, tcfg.conv_kernel - 1, tcfg.ssm_d_inner + 2 * tcfg.ssm_state)
 
 
-def test_other_families_raise_not_implemented():
-    """The frontend archs come with slice 4: the registry names it, and
-    the model refuses a vision config."""
-    from repro_torch.configs.registry import get_config
-    for arch in ("internvl2-1b", "musicgen-medium"):
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            get_config(arch)
-    cfg = smoke_config("yi-34b").replace(family="vlm", frontend="vision")
-    with pytest.raises(NotImplementedError):
-        lm.abstract_params(cfg)
+def test_unknown_arch_raises_key_error():
+    """Every arch of the JAX registry is ported; a name outside it fails
+    loudly, in both registries alike."""
+    from repro.configs.registry import get_config as jax_get_config
+    from repro_torch.configs.registry import ARCHS as PORT_ARCHS, get_config
+    from repro.configs.registry import ARCHS as JAX_ARCHS
+    assert sorted(PORT_ARCHS) == sorted(JAX_ARCHS)
+    for lookup in (get_config, jax_get_config):
+        with pytest.raises(KeyError, match="unknown arch"):
+            lookup("llama-9000")

@@ -9,9 +9,11 @@ It builds the hand-written kernels from the checkout's sources and
 serves h2o-danube-1.8b (dense), mamba2-780m (ssm), hymba-1.5b (hybrid),
 internvl2-1b (vision) and musicgen-medium (audio) at full width and full
 depth, and arctic-480b and grok-1-314b (moe) at full width and reduced
-depth (2 and 4 layers: neither fits one 80 GB card whole), and trains
-internvl2-1b at full size, with random weights from a seed, in phases
-(each logs its seconds):
+depth (2 and 4 layers: neither fits one 80 GB card whole), trains
+internvl2-1b at full size, trains h2o-danube-1.8b at full size through
+the train launcher and round-trips a full-width checkpoint through the
+trainer, with random weights from a seed, in phases (each logs its
+seconds):
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc for the three CUDA libraries (RMSNorm, flash attention,
@@ -59,10 +61,23 @@ internvl2-1b at full size, with random weights from a seed, in phases
      hymba layer on the card (all three kernels, under remat none, dots
      and full) vs on the CPU; 14b. four bf16 steps of internvl2 at full
      size (AdamW, cosine schedule, remat full, 2 microbatches);
-  11. the kernels line: launches on the seven paths, in this order
+  15. the train launcher (``repro_torch.launch.train.main``) on
+     h2o-danube-1.8b at full size: TRAIN_LAUNCH_STEPS steps of 8 x 64
+     tokens, AdamW on the launcher's cosine schedule, remat dots, dense
+     attention (the launcher's "auto"), no checkpoint: completed steps,
+     finite losses, peak memory;
+  16. checkpoints: danube at full width and CKPT_LAYERS layers, remat
+     dots, the flash kernel: a Trainer with an async CheckpointManager
+     under build/ fits 5 steps and saves once, at step 3; a fresh
+     Trainer from another seed resumes to step 3 with every leaf
+     bit-equal to the state cloned at that step and on the card, and
+     its next step's loss equals the first trainer's step-4 loss within
+     1e-6 relative; logs the codec, raw and on-disk bytes and the save's
+     and the restore's seconds;
+  11. the kernels line: launches on the eight paths, in this order
      (phases 5-6, the dense path; 7-7c, the moe path; 10-10b, the hybrid
-     path; 12-12b, vision; 13-13b, audio; 14-14b, train; 8-9, the ssm
-     path), each path's counts set to 0 just before
+     path; 12-12b, vision; 13-13b, audio; 14-14b, train; 15-16, trainer;
+     8-9, the ssm path), each path's counts set to 0 just before
      it and read just after and checked, and each kernel's time at its
      paths' shapes (taken after phase 4b) beside its plain version, a
      PyTorch library call computing the same function where there is
@@ -103,6 +118,13 @@ VISION_ARCH = "internvl2-1b"
 AUDIO_ARCH = "musicgen-medium"
 FRONTEND_F32_LAYERS = 2            # the frontends' and the training f32 checks
 TRAIN_STEPS = 4                    # internvl2-1b's bf16 steps at full size
+TRAIN_LAUNCH_STEPS = 4             # the train launcher's steps, danube at full size
+# the checkpoint phase: danube at full width and 2 layers (302.8 M
+# parameters, 3.03 GB of state with AdamW's); a full-depth save is 18.3 GB
+# through one compression thread
+CKPT_LAYERS = 2
+CKPT_EVERY, CKPT_FIT = 3, 5        # one save, at step 3, in a fit of 5 steps
+CKPT_DIR = os.path.join(ROOT, "build", "chip_smoke_ckpt")
 FRONTEND_REQUESTS = 4              # the frontends' serving requests
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core peak
@@ -1027,6 +1049,154 @@ def phase_train_bf16():
     return {"flash_attention": mb * 2 * L, "ssd_chunk": 0, "rmsnorm": mb * (4 * L + 1)}
 
 
+def phase_train_launcher():
+    """h2o-danube-1.8b at full width and depth through the train
+    launcher, as a user starts it: TRAIN_LAUNCH_STEPS steps of a batch of
+    8 x 64, no checkpoint. Checks the completed steps and that both
+    reported losses are finite; logs the launcher's report, ms per step
+    (from its steps/s, the first step included) and the peak memory.
+    Returns the launches: per step 4L+1 RMSNorm (remat dots reruns the
+    layer bodies' forward) and no flash (the launcher's "auto" attention
+    is dense at S <= 8192)."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train as launch_train
+    cfg = get_config(ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = launch_train.main(["--arch", ARCH, "--steps", str(TRAIN_LAUNCH_STEPS),
+                             "--batch", "8", "--seq", "64", "--device", DEVICE])
+    seconds = time.perf_counter() - t0
+    check(out["result"]["completed"] == TRAIN_LAUNCH_STEPS,
+          f"train launcher: {out['result']}")
+    check(math.isfinite(out["loss_first"]) and math.isfinite(out["loss_last"])
+          and math.isfinite(out["result"]["final_loss"]), f"train launcher losses: {out}")
+    log(f"[train launcher] {json.dumps({**out, 'layers': cfg.num_layers, 'params': cfg.param_count(), 'batch': 8, 'seq': 64, 'remat': 'dots', 'ms_per_step': 1e3 / out['steps_per_s'], 'seconds_with_init': seconds, 'max_memory_allocated_bytes': torch.cuda.max_memory_allocated()})}")
+    torch.cuda.empty_cache()
+    return {"flash_attention": 0, "ssd_chunk": 0,
+            "rmsnorm": TRAIN_LAUNCH_STEPS * (4 * cfg.num_layers + 1)}
+
+
+def phase_checkpoint():
+    """A checkpoint of danube at full width and CKPT_LAYERS layers
+    through the Trainer's NRI drivers: trainer A (AdamW, remat dots, the
+    flash kernel, 8 x 64 tokens) fits CKPT_FIT steps with an async
+    CheckpointManager saving every CKPT_EVERY; a driver clones the state
+    at that STEP_END. Trainer B, built afresh from seed 1, resumes: the
+    step is CKPT_EVERY, every leaf bit-equal to the clone and on the card,
+    the state's step one more; B's next step's loss equals A's at that
+    step within 1e-6 relative. Logs the codec, raw and on-disk bytes, the
+    save's host snapshot and file write (through ``wait()``), the
+    restore's seconds and the process's peak host memory before and
+    after. Returns the launches: per step 2L flash and 4L+1 RMSNorm (remat
+    reruns the layer bodies), for A's steps and B's one."""
+    import resource
+    import shutil
+    import torch
+    from repro_torch.ckpt.checkpoint import SHARD, CheckpointManager, list_checkpoints
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import Events, KNDDriver
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.schedule import constant_schedule
+    from repro_torch.train.train_step import StepConfig
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.tree import tree_flatten_with_paths
+
+    class TimedCheckpoints(CheckpointManager):
+        """Times ``save`` (the host snapshot; the files are written by a
+        thread) and the wait that follows it (the file write)."""
+        saved_at = snapshot_s = write_s = None
+
+        def save(self, step, tree):
+            t0 = time.perf_counter()
+            super().save(step, tree)
+            self.saved_at = time.perf_counter()
+            self.snapshot_s = self.saved_at - t0
+
+        def wait(self):
+            super().wait()
+            if self.saved_at is not None and self.write_s is None:
+                self.write_s = time.perf_counter() - self.saved_at
+
+    class CloneAt(KNDDriver):
+        name = "clone.chip-smoke"
+
+        def __init__(self, step):
+            super().__init__()
+            self.step, self.state = step, None
+
+        def register(self, bus):
+            bus.subscribe(Events.STEP_END, self.on_end, self.name)
+
+        def on_end(self, event):
+            if int(event.context["step"]) == self.step:
+                self.state = tree_map(lambda t: t.clone(), event.context["state"])
+
+    cfg = get_config(ARCH).replace(num_layers=CKPT_LAYERS)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+
+    def trainer(drivers):
+        return Trainer(cfg, AdamW(constant_schedule(1e-4)),
+                       SyntheticLMData(cfg, 8, 64, seed=SEED),
+                       step_cfg=StepConfig(remat="dots", attention_impl="kernel"),
+                       ckpt=TimedCheckpoints(CKPT_DIR, async_save=True),
+                       ckpt_every=CKPT_EVERY, drivers=drivers, device=DEVICE)
+
+    rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    clone = CloneAt(CKPT_EVERY)
+    a = trainer([clone])
+    a.init(SEED)
+    out = a.fit(CKPT_FIT)
+    check(out["completed"] == CKPT_FIT and list_checkpoints(CKPT_DIR) == [CKPT_EVERY],
+          f"checkpoint: fit {out}, checkpoints {list_checkpoints(CKPT_DIR)}")
+    rss1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    step_dir = os.path.join(CKPT_DIR, f"step_{CKPT_EVERY:08d}")
+    with open(os.path.join(step_dir, "manifest.json")) as f:
+        manifest = json.load(f)
+    raw = sum(t.numel() * t.element_size() for _, t in tree_flatten_with_paths(clone.state))
+    disk = os.path.getsize(os.path.join(step_dir, SHARD))
+
+    b = trainer([])
+    b.init(seed=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = b.resume()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(step == CKPT_EVERY, f"resume returned {step}, want {CKPT_EVERY}")
+    got, want = tree_flatten_with_paths(b.state), tree_flatten_with_paths(clone.state)
+    check([k for k, _ in got] == [k for k, _ in want], "restored leaves differ from the saved")
+    for (key, g), (_, w) in zip(got, want):
+        check(g.device.type == torch.device(DEVICE).type and g.dtype == w.dtype
+              and torch.equal(g, w), f"restored leaf {key} is not the saved one, bit for bit")
+    check(int(b.state["step"]) == CKPT_EVERY + 1, f"restored step {int(b.state['step'])}")
+    b.fit(1)
+    loss_a = a.history[CKPT_EVERY + 1]
+    loss_b = b.history[-1]
+    check(loss_a["step"] == loss_b["step"] == CKPT_EVERY + 1, f"{loss_a} vs {loss_b}")
+    rel = abs(loss_b["loss"] - loss_a["loss"]) / abs(loss_a["loss"])
+    check(rel <= 1e-6, f"resumed loss {loss_b['loss']} vs {loss_a['loss']}: rel {rel} > 1e-6")
+    rss2 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    mgr = a.ckpt
+    report = {
+        "arch": cfg.name, "layers": CKPT_LAYERS, "params": cfg.param_count(),
+        "leaves": len(want), "codec": manifest["codec"], "raw_bytes": raw, "disk_bytes": disk,
+        "snapshot_s": mgr.snapshot_s, "write_s": mgr.write_s,
+        "write_mb_per_s": raw / mgr.write_s / 1e6, "restore_s": restore_s,
+        "restore_mb_per_s": raw / restore_s / 1e6, "resumed_step": step,
+        "loss_step": loss_a["step"], "loss_a": loss_a["loss"], "loss_b": loss_b["loss"],
+        "loss_rel_diff": rel, "losses_a": [h["loss"] for h in a.history],
+        "host_maxrss_kb": [rss0, rss1, rss2]}
+    log(f"[checkpoint] codec {manifest['codec']}; {json.dumps(report)}")
+    del a, b, clone, got, want
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    steps = CKPT_FIT + 1
+    return {"flash_attention": steps * 2 * CKPT_LAYERS, "ssd_chunk": 0,
+            "rmsnorm": steps * (4 * CKPT_LAYERS + 1)}
+
+
 def prompt_batch(cfg, rng, S):
     """lm.prefill's inputs for a random S-token prompt on the card: ids
     (1, S), codes (1, S, ncb) for the audio family, and for the vision
@@ -1550,6 +1720,17 @@ def main() -> int:
     log(f"[train path] kernel launches: {paths['train']}")
     check(paths["train"] == add_launches(*want),
           f"train path launches {paths['train']} != {add_launches(*want)}")
+
+    # the trainer path: phases 15 (the train launcher at full size) and 16
+    # (the checkpoint round trip), counted exactly, remat's recompute
+    # launches included
+    reset_launch_counts()
+    want = [timed("train launcher", phase_train_launcher),
+            timed("checkpoint", phase_checkpoint)]
+    paths["trainer"] = launch_counts()
+    log(f"[trainer path] kernel launches: {paths['trainer']}")
+    check(paths["trainer"] == add_launches(*want),
+          f"trainer path launches {paths['trainer']} != {add_launches(*want)}")
 
     reset_launch_counts()                      # the ssm path: phases 8-9
     timed("ssm f32", phase_ssm_f32, rng)

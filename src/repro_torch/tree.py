@@ -4,15 +4,26 @@ state trees): leaves in sorted-key order, the order in which
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Mapping, Sequence
+from typing import Any, Callable, List, Mapping, Sequence, Tuple
 
-__all__ = ["tree_leaves", "tree_map", "tree_unflatten"]
+__all__ = ["tree_flatten_with_paths", "tree_leaves", "tree_map", "tree_unflatten"]
 
 
 def tree_leaves(tree: Any) -> List[Any]:
     if isinstance(tree, Mapping):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     return [tree]
+
+
+def tree_flatten_with_paths(tree: Any, prefix: Tuple[str, ...] = ()
+                            ) -> List[Tuple[str, Any]]:
+    """``(path, leaf)`` in :func:`tree_leaves` order, the path being the
+    dict keys joined by ``/``: the keys the JAX package's checkpoints
+    give ``jax.tree_util.tree_flatten_with_path``'s paths."""
+    if isinstance(tree, Mapping):
+        return [kv for k in sorted(tree)
+                for kv in tree_flatten_with_paths(tree[k], prefix + (str(k),))]
+    return [("/".join(prefix), tree)]
 
 
 def tree_unflatten(like: Any, leaves: Sequence[Any]) -> Any:

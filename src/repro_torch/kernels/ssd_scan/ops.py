@@ -15,6 +15,9 @@ per chunk) and then ``ssd_chunk_kernel`` (y_diag, states and decays for
 every head), and ``launches`` counts it once: it counts calls of the
 port's SSD kernel, the counterpart of one ``ssd_chunk_fwd`` of the JAX
 package.
+
+A ``DTensor`` raises: the ssm and hybrid families under a mesh are a
+later slice of the port.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from .ref import ssd_chunk_ref
 from .ssd_scan import ssd_chunk_fwd
@@ -58,6 +62,10 @@ def ssd_chunk(C: torch.Tensor, B: torch.Tensor, x: torch.Tensor,
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """C, B: (b,nc,Q,N); x: (b,nc,Q,H,P); dt, da: (b,nc,Q,H) ->
     y_diag (b,nc,Q,H,P), states (b,nc,H,N,P), decays (b,nc,H), f32."""
+    if any(isinstance(t, DTensor) for t in (C, B, x, dt, da)):
+        raise NotImplementedError(
+            "ssd_chunk on a DTensor: the ssm and hybrid families under a mesh "
+            "come with a later slice of the port")
     if C.device.type == "cpu":
         return ssd_chunk_ref(C, B, x, dt, da)
     if C.device.type != "cuda":

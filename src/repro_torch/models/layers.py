@@ -11,8 +11,10 @@ the probabilities cast to the compute dtype before the PV product, and
 ``-1e30`` (not ``-inf``) for masked scores, so a fully masked row gets a
 uniform softmax rather than NaN.
 
-The sharding constraints of the JAX version only place tensors on a
-mesh; on one device they have no counterpart and are dropped.
+The sharding constraints of the JAX version sit at the same points:
+:func:`..parallel.sharding.constrain` redistributes a ``DTensor`` to the
+active rules' placements, and does nothing without a mesh or on a plain
+tensor.
 
 RMSNorm, the flash attention path and the SSD intra-chunk block go
 through the hand-written kernels' wrappers, which launch the kernel for
@@ -30,6 +32,8 @@ import torch.nn.functional as F
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.rmsnorm.ops import rmsnorm as rmsnorm_op
 from ..kernels.ssd_scan.ops import ssd_chunk
+from ..parallel.sharding import (constrain, current_rules, mesh_axis_sizes,
+                                 replicated_like, whole_dims)
 from .config import ModelConfig
 from .modules import Builder, he_normal, normal_init, ones_init, zeros_init
 
@@ -79,6 +83,7 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     """x: (B, S, ..., head_dim); cos/sin: (B?, S, head_dim//2)."""
     half = x.shape[-1] // 2
     x1, x2 = x[..., :half], x[..., half:]
+    cos, sin = replicated_like(cos, x), replicated_like(sin, x)
     while cos.dim() < x.dim():
         cos = cos[..., None, :]
         sin = sin[..., None, :]
@@ -113,10 +118,18 @@ def build_attention(b: Builder, cfg: ModelConfig) -> Params:
         return p
 
 
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (B, S, ...) ready for a product that flattens (B, S) into
+    rows: under a mesh, its sequence dim gathered, since DTensor flattens
+    sharded dims only where the sharded one leads."""
+    return whole_dims(x, 1)
+
+
 def _project_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The q/k/v projections (+ qkv bias), before RoPE."""
     cdt = cfg.compute_torch_dtype()
+    x = _rows(x)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cdt))
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(cdt))
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(cdt))
@@ -131,7 +144,10 @@ def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     q, k, v = _project_qkv(cfg, p, x)
     cos, sin = rope_table(positions, cfg.resolved_head_dim, cfg.rope_theta)
-    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+    q = constrain(apply_rope(q, cos, sin), "batch", "seq", "act_heads", None)
+    k = constrain(apply_rope(k, cos, sin), "batch", "seq", "act_kv", None)
+    v = constrain(v, "batch", "seq", "act_kv", None)
+    return q, k, v
 
 
 def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int) -> torch.Tensor:
@@ -148,11 +164,14 @@ def _attend_dense(cfg: ModelConfig, q, k, v, q_pos, k_pos) -> torch.Tensor:
     K = k.shape[2]
     G = H // K
     qg = q.reshape(B, Sq, K, G, hd)
+    qg = constrain(qg, "batch", "seq", "act_kv", None, None)
     scale = 1.0 / math.sqrt(hd)
     scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k).float() * scale
-    mask = _mask(q_pos, k_pos, cfg.sliding_window)
+    scores = constrain(scores, "batch", "act_kv", None, "seq", None)
+    mask = replicated_like(_mask(q_pos, k_pos, cfg.sliding_window), scores)
     scores = torch.where(mask[None, None, None], scores, _neg_inf(scores))
     w = torch.softmax(scores, dim=-1).to(q.dtype)
+    w = constrain(w, "batch", "act_kv", None, "seq", None)
     out = torch.einsum("bkgqs,bskh->bqkgh", w, v)
     return out.reshape(B, Sq, H, hd)
 
@@ -162,6 +181,11 @@ def _attend_blockwise(cfg: ModelConfig, q, k, v, q_pos, k_pos) -> torch.Tensor:
     B, S, H, hd = q.shape
     K = k.shape[2]
     G = H // K
+    # blockwise path iterates seq blocks serially: keep seq replicated so
+    # per-block slices stay local (batch/head sharding only)
+    q = constrain(q, "batch", None, "act_heads", None)
+    k = constrain(k, "batch", None, "act_kv", None)
+    v = constrain(v, "batch", None, "act_kv", None)
     scale = 1.0 / math.sqrt(hd)
     nq = -(-S // Q_BLOCK)
     nk = -(-S // KV_BLOCK)
@@ -219,8 +243,10 @@ def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
         out = _attend_blockwise(cfg, q, k, v, pos, pos)
     else:
         raise ValueError(f"unknown attention_impl {attention_impl!r}")
+    out = constrain(out, "batch", "seq", "act_heads", None)
     cdt = cfg.compute_torch_dtype()
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(cdt))
+    y = torch.einsum("bshk,hkd->bsd", _rows(out), p["wo"].to(cdt))
+    return constrain(y, "batch", "seq", "act_embed")
 
 
 def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -247,6 +273,8 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     ck, cv = cache["k"], cache["v"]
     ck[rows, slot] = k[:, 0].to(ck.dtype)
     cv[rows, slot] = v[:, 0].to(cv.dtype)
+    ck = constrain(ck, "batch", "seq_kv", "act_kv", None)
+    cv = constrain(cv, "batch", "seq_kv", "act_kv", None)
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     qg = q.reshape(B, 1, K, H // K, hd)
     scores = torch.einsum("bqkgh,bskh->bkgqs", qg, ck.to(cdt)).float() / math.sqrt(hd)
@@ -372,9 +400,39 @@ def build_mlp(b: Builder, cfg: ModelConfig, name: str = "mlp",
         return p
 
 
+def _ffn_use_sp_boundary(x: torch.Tensor, d_ff: int) -> bool:
+    """Adaptive Megatron-SP boundary decision, as the JAX package's.
+
+    Under sequence parallelism, constraining the FFN intermediate to the
+    seq layout leaves no shardable dim for the 2D-sharded weights, so
+    they are replicated. Gathering seq at the FFN boundary instead costs
+    ~2 activation passes. Pick whichever moves fewer bytes:
+        sp:  2 * (B/dp) * S * D          (+ w gather over data, small)
+        seq: 3 * D * F                   (weights replicated over model)
+    """
+    rules = current_rules()
+    if rules is None or rules.mesh is None:
+        return False
+    if rules.resolve("seq") is None:
+        return False  # no SP in effect; both layouts are identical
+    sizes = mesh_axis_sizes(rules.mesh)
+    b_axes = rules.resolve("batch") or ()
+    b_axes = (b_axes,) if isinstance(b_axes, str) else b_axes
+    dp = 1
+    for a in b_axes:
+        dp *= sizes.get(a, 1)
+    B, S, D = x.shape
+    seq_gather = 2 * max(B // max(dp, 1), 1) * S * D
+    weight_repl = 3 * D * d_ff
+    return weight_repl > seq_gather
+
+
 def mlp_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     cdt = cfg.compute_torch_dtype()
+    seq_ax = None if _ffn_use_sp_boundary(x, p["w_up"].shape[-1]) else "seq"
+    x = _rows(x)
     up = torch.einsum("bsd,df->bsf", x, p["w_up"].to(cdt))
+    up = constrain(up, "batch", seq_ax, "act_ff")
     if cfg.act == "swiglu":
         g = torch.einsum("bsd,df->bsf", x, p["w_gate"].to(cdt))
         h = F.silu(g) * up
@@ -383,7 +441,9 @@ def mlp_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
         h = F.gelu(g, approximate="tanh") * up       # jax.nn.gelu's default
     else:
         h = F.gelu(up, approximate="tanh")
-    return torch.einsum("bsf,fd->bsd", h, p["w_down"].to(cdt))
+    h = constrain(h, "batch", seq_ax, "act_ff")
+    y = torch.einsum("bsf,fd->bsd", _rows(h), p["w_down"].to(cdt))
+    return constrain(y, "batch", "seq", "act_embed")
 
 
 # ---------------------------------------------------------------------------
@@ -484,7 +544,7 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor
     dest = torch.where(r.keep, flat * cap + r.slot, torch.full_like(flat, spill))
     buf = torch.zeros((spill + 1, D), dtype=cdt, device=x.device)
     buf.index_put_((dest,), xt[tok].to(cdt))
-    eb = buf[:spill].view(E, cap, D)
+    eb = constrain(buf[:spill].view(E, cap, D), "act_experts", "moe_cap", None)
 
     up = torch.einsum("ecd,edf->ecf", eb, p["w_up"].to(cdt))
     gate = torch.einsum("ecd,edf->ecf", eb, p["w_gate"].to(cdt))
@@ -492,7 +552,9 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor
         act = F.gelu(gate, approximate="tanh") * up   # jax.nn.gelu's default
     else:
         act = F.silu(gate) * up
-    out = torch.einsum("ecf,efd->ecd", act, p["w_down"].to(cdt)).reshape(spill, D)
+    act = constrain(act, "act_experts", "moe_cap", None)
+    out = torch.einsum("ecf,efd->ecd", act, p["w_down"].to(cdt))
+    out = constrain(out, "act_experts", "moe_cap", None).reshape(spill, D)
 
     src = flat * cap + torch.clamp(r.slot, max=cap - 1)
     gathered = out[src].masked_fill(~r.keep[:, None], 0)
@@ -503,6 +565,7 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor
     y = y.reshape(B, S, D)
     if cfg.dense_residual:
         y = y + mlp_apply(cfg, p["dense"], x)
+    y = constrain(y, "batch", "seq", "act_embed")
     return y, {"load_balance": lb_loss, "router_z": z_loss}
 
 
@@ -591,6 +654,7 @@ def ssd_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
     nc = (S + pad) // Q
 
     xs, z, Bm, Cm, dt = _ssd_in(cfg, p, x)
+    xs = constrain(xs, "batch", "seq", "act_ff")
     conv_in = torch.cat([xs, Bm, Cm], dim=-1)
     conv_out = F.silu(_causal_conv(conv_in, p["conv_w"], p["conv_b"]))
     xs, Bm, Cm = conv_out[..., :di], conv_out[..., di:di + N], conv_out[..., di + N:]
@@ -621,7 +685,8 @@ def ssd_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
     y_off = torch.einsum("bcqn,bchnp,bcqh->bcqhp", Cc, prev_states, torch.exp(cum))
     y = (y_diag + y_off).reshape(B, nc * Q, H, P)[:, :S]
     y = y + xs.reshape(B, nc * Q, H, P)[:, :S].float() * p["d_skip"][:, None]
-    out = _gated_out(cfg, p, y.reshape(B, S, di), z)
+    out = constrain(_gated_out(cfg, p, y.reshape(B, S, di), z),
+                    "batch", "seq", "act_embed")
     if return_state:
         k = cfg.conv_kernel
         conv_tail = F.pad(conv_in, (0, 0, k - 1, 0))[:, S:S + k - 1]

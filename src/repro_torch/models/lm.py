@@ -33,8 +33,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
+from ..parallel.sharding import active_mesh, constrain, whole_dims
 from .config import ModelConfig
-from .layers import (_qkv, attention_apply, attention_decode,
+from .layers import (_qkv, _rows, attention_apply, attention_decode,
                      attention_decode_paged, build_attention, build_mlp,
                      build_moe, build_rmsnorm, build_ssd, init_kv_cache,
                      init_ssd_cache, mlp_apply, moe_apply, rmsnorm, ssd_apply,
@@ -119,6 +120,11 @@ def abstract_params(cfg: ModelConfig) -> Params:
     return build_params(Builder(Mode.SHAPE, param_dtype=cfg.param_torch_dtype()), cfg)
 
 
+def param_specs(cfg: ModelConfig) -> Params:
+    """The parameter tree's logical axes, one tuple per parameter."""
+    return build_params(Builder(Mode.SPEC, param_dtype=cfg.param_torch_dtype()), cfg)
+
+
 # ---------------------------------------------------------------------------
 # Layer body (shared by train forward / prefill)
 # ---------------------------------------------------------------------------
@@ -177,6 +183,15 @@ def layer_apply(cfg: ModelConfig, lp: Params, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]`` as ``F.embedding``, with or without a mesh: its
+    backward sums repeated tokens in f32 (indexing's sums in the table's
+    dtype), and DTensor propagates it. A ``DTensor`` table has its vocab
+    dim made whole first (DTensor's vocab-sharded lookup leaves pending
+    masked sums)."""
+    return F.embedding(tokens, whole_dims(table, 0))
+
+
 def embed_tokens(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor]
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (x (B,S,D), positions (S,)); with ``patch_embeds`` (vision)
@@ -192,22 +207,26 @@ def embed_tokens(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor]
         for c in range(cfg.num_codebooks):
             x = x + p["embed"][c][tokens[..., c]].to(cdt)
     else:
-        x = p["embed"][tokens].to(cdt)
+        x = _embed(p["embed"], tokens).to(cdt)
     if cfg.frontend == "vision" and "patch_embeds" in batch:
         pe = batch["patch_embeds"].to(cdt)                       # (B,P,vit)
         img = F.gelu(pe @ p["proj_in"].to(cdt), approximate="tanh")  # jax.nn.gelu
         x = torch.cat([img @ p["proj_hidden"].to(cdt), x], dim=1)
     S = x.shape[1]
+    x = constrain(x, "batch", "seq", "act_embed")
     return x, torch.arange(S, dtype=torch.int32, device=x.device)
 
 
 def lm_head(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """(B,S,V); audio (B,S,ncb,V)."""
     cdt = cfg.compute_torch_dtype()
+    x = _rows(x)
     if cfg.frontend == "audio":
-        return torch.einsum("bsd,cdv->bscv", x, p["head"].to(cdt))
+        logits = torch.einsum("bsd,cdv->bscv", x, p["head"].to(cdt))
+        return constrain(logits, "batch", "seq", None, "act_vocab")
     w = p["embed"].T if cfg.tie_embeddings else p["head"]
-    return torch.einsum("bsd,dv->bsv", x, w.to(cdt))
+    logits = torch.einsum("bsd,dv->bsv", x, w.to(cdt))
+    return constrain(logits, "batch", "seq", "act_vocab")
 
 
 # ---------------------------------------------------------------------------
@@ -250,7 +269,13 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Logits (B,S,V) (audio (B,S,ncb,V)) and the MoE aux losses. The
     layer bodies are checkpointed by ``remat`` only where a gradient is
-    being recorded; the values do not depend on it."""
+    being recorded; the values do not depend on it. Under a mesh only
+    the dense family runs: the others need DTensor work of their own
+    (the MoE dispatch, the SSD chunk, the frontends), a later slice."""
+    if active_mesh() is not None and (cfg.family != "dense" or cfg.frontend != "none"):
+        raise NotImplementedError(
+            f"forward under a mesh: the {cfg.family} family "
+            f"(frontend {cfg.frontend}) is not sharded yet; only dense runs")
     x, positions = embed_tokens(cfg, params, batch)
     aux_acc: Dict[str, torch.Tensor] = {}
     if cfg.num_experts > 0:

@@ -1,4 +1,4 @@
-"""Minimal functional module system: one builder, two interpretations.
+"""Minimal functional module system: one builder, three interpretations.
 
 A model is defined once as ``build_*(b: Builder, cfg)``; depending on
 the builder mode the same code yields
@@ -7,7 +7,9 @@ the builder mode the same code yields
   from one ``torch.Generator`` per parameter path (seeded from the
   builder seed and a hash of the path, so init order doesn't matter);
 * ``Mode.SHAPE`` — tensors on the ``meta`` device: the tree's shapes and
-  dtypes at no cost.
+  dtypes at no cost;
+* ``Mode.SPEC``  — logical-axis tuples per parameter (consumed by
+  ``parallel.sharding`` to derive DTensor placements).
 
 The tree and shapes are those of the JAX package's ``Builder``; the
 values are not (``jax.random`` and ``torch`` draw different numbers),
@@ -19,7 +21,7 @@ from __future__ import annotations
 import enum
 import hashlib
 import math
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -32,6 +34,7 @@ LogicalAxes = Tuple[Optional[str], ...]
 class Mode(enum.Enum):
     INIT = "init"
     SHAPE = "shape"
+    SPEC = "spec"
 
 
 def _path_seed(path: str) -> int:
@@ -67,8 +70,8 @@ def normal_init(std: float):
 
 
 class Builder:
-    """Walks the parameter tree, producing tensors (INIT) or meta tensors
-    (SHAPE)."""
+    """Walks the parameter tree, producing tensors (INIT), meta tensors
+    (SHAPE) or logical axes (SPEC)."""
 
     def __init__(self, mode: Mode, seed: int = 0,
                  param_dtype: torch.dtype = torch.bfloat16,
@@ -85,8 +88,9 @@ class Builder:
         return _Scope(self, name)
 
     def stacked(self, n: int) -> "_Stack":
-        """Params created inside get a leading (n,) dim — the stacked
-        per-layer layout the models index one layer at a time."""
+        """Params created inside get a leading (n,) dim with logical axis
+        'layer' — the stacked per-layer layout the models index one layer
+        at a time."""
         return _Stack(self, n)
 
     @property
@@ -96,10 +100,12 @@ class Builder:
     # -- parameter creation ---------------------------------------------------
     def param(self, name: str, shape: Sequence[int], axes: LogicalAxes,
               init: Callable = he_normal, dtype: Optional[torch.dtype] = None,
-              fan_in: Optional[int] = None) -> torch.Tensor:
+              fan_in: Optional[int] = None) -> Union[torch.Tensor, LogicalAxes]:
         shape = tuple(int(s) for s in shape)
         if len(axes) != len(shape):
             raise ValueError(f"{self.path}/{name}: axes {axes} rank != shape {shape}")
+        if self.mode == Mode.SPEC:
+            return tuple(axes) if self._stack is None else ("layer",) + tuple(axes)
         dtype = dtype if dtype is not None else self.param_dtype
         if fan_in is None:
             # the default fan-in reads the unstacked shape, as in JAX

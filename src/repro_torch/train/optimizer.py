@@ -62,6 +62,10 @@ class Optimizer:
                step: torch.Tensor) -> Tuple[Params, Any]:
         raise NotImplementedError
 
+    def state_specs(self, param_specs: Any, abstract_params: Any) -> Any:
+        """The state's logical axes, from the parameters' axes and shapes."""
+        raise NotImplementedError
+
 
 @dataclass
 class AdamW(Optimizer):
@@ -95,6 +99,9 @@ class AdamW(Optimizer):
         new_p, new_m, new_v = _unzip(
             tree_map(upd, params, grads, state["m"], state["v"]), 3)
         return new_p, {"m": new_m, "v": new_v}
+
+    def state_specs(self, param_specs: Any, abstract_params: Any) -> Any:
+        return {"m": param_specs, "v": param_specs}
 
 
 @dataclass
@@ -151,3 +158,10 @@ class Adafactor(Optimizer):
 
         new_p, new_acc = _unzip(tree_map(upd, params, grads, state["acc"]), 2)
         return new_p, {"acc": new_acc}
+
+    def state_specs(self, param_specs: Any, abstract_params: Any) -> Any:
+        def spec(axes, p):
+            if self._factored(tuple(p.shape)):
+                return {"vr": tuple(axes[:-1]), "vc": tuple(axes[:-2]) + (axes[-1],)}
+            return {"v": tuple(axes)}
+        return {"acc": tree_map(spec, param_specs, abstract_params)}

@@ -7,6 +7,13 @@ and their gradients are summed in ``accum_dtype`` and divided by the
 count, as JAX's scan over microbatches does. Then the
 ``grad_transform`` hook, global-norm clipping in f32, the optimizer and
 ``step + 1``. The step is functional: it returns a new state.
+
+Under sharding rules with a mesh (:func:`..parallel.sharding.use_rules`)
+:func:`init_train_state` returns the parameters and the optimizer state
+as ``DTensor``s placed by :func:`train_state_specs`, and the step
+distributes each batch tensor over ``"batch"``; the gradients take their
+parameters' placements, and the metrics come back as plain tensors, the
+same on every rank.
 """
 
 from __future__ import annotations
@@ -16,13 +23,18 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from torch.distributed.tensor import DTensor
+
 from ..device import resolve_device
 from ..models import lm
 from ..models.config import ModelConfig
+from ..parallel.sharding import (active_mesh, current_rules, distribute_batch,
+                                 distribute_tree, param_shardings, to_plain)
 from ..tree import tree_leaves, tree_unflatten
 from .optimizer import Optimizer, clip_by_global_norm
 
-__all__ = ["StepConfig", "TrainState", "init_train_state", "make_train_step"]
+__all__ = ["StepConfig", "TrainState", "abstract_train_state", "init_train_state",
+           "make_train_step", "shard_train_state", "train_state_specs"]
 
 TrainState = Dict[str, Any]  # {"params", "opt_state", "step"}
 Batch = Dict[str, torch.Tensor]
@@ -40,11 +52,55 @@ class StepConfig:
 def init_train_state(cfg: ModelConfig, optimizer: Optimizer, seed: int = 0,
                      device: Optional[torch.device] = None) -> TrainState:
     """Parameters from ``seed`` (:func:`lm.init_params`), the optimizer's
-    state and step 0, on ``device`` (``None`` = the GPU)."""
+    state and step 0, on ``device`` (``None`` = the GPU). Under rules
+    with a mesh every rank makes the same values and keeps its shards:
+    the parameters and the optimizer state become ``DTensor``s placed by
+    :func:`train_state_specs`; the step stays a plain tensor."""
     dev = resolve_device(device)
     params = lm.init_params(cfg, seed, dev)
+    return shard_train_state(cfg, optimizer, {
+        "params": params, "opt_state": optimizer.init(params),
+        "step": torch.zeros((), dtype=torch.int32, device=dev)})
+
+
+def shard_train_state(cfg: ModelConfig, optimizer: Optimizer,
+                      state: TrainState) -> TrainState:
+    """``state`` (the same full values on every rank) with its parameters
+    and optimizer state distributed by :func:`train_state_specs` under
+    the current rules' mesh; as it is without one."""
+    mesh = active_mesh()
+    if mesh is None:
+        return state
+    specs = train_state_specs(cfg, optimizer)
+    abstract = abstract_train_state(cfg, optimizer)
+    keys = ("params", "opt_state")
+    shardings = param_shardings({k: specs[k] for k in keys}, current_rules(),
+                                {k: abstract[k] for k in keys})
+    return {**distribute_tree({k: state[k] for k in keys}, shardings, mesh),
+            "step": state["step"]}
+
+
+def abstract_train_state(cfg: ModelConfig, optimizer: Optimizer) -> TrainState:
+    """The train state as ``meta`` tensors: shapes and dtypes only."""
+    params = lm.abstract_params(cfg)
     return {"params": params, "opt_state": optimizer.init(params),
-            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+            "step": torch.zeros((), dtype=torch.int32, device="meta")}
+
+
+def train_state_specs(cfg: ModelConfig, optimizer: Optimizer) -> TrainState:
+    """Logical-axis tree for the whole train state."""
+    pspecs = lm.param_specs(cfg)
+    return {"params": pspecs,
+            "opt_state": optimizer.state_specs(pspecs, lm.abstract_params(cfg)),
+            "step": ()}
+
+
+def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor`` gradient redistributed to its parameter's placements
+    (autograd may hand it back replicated or as partial sums)."""
+    if isinstance(g, DTensor) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
@@ -59,6 +115,8 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     sc = step_cfg or StepConfig()
 
     def grads_of(params: Any, batch: Batch) -> Tuple[list, Dict[str, torch.Tensor]]:
+        if active_mesh() is not None:
+            batch = distribute_batch(batch, current_rules())
         live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
         loss, metrics = lm.train_loss(cfg, tree_unflatten(params, live), batch,
                                       sc.attention_impl, sc.remat)
@@ -66,12 +124,12 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
         # text-only vision batch) gets zeros, as jax.grad gives it
         grads = torch.autograd.grad(loss, live, allow_unused=True,
                                     materialize_grads=True)
-        return list(grads), {k: v.detach() for k, v in metrics.items()}
+        return ([_placed_like(g, p) for g, p in zip(grads, live)],
+                {k: to_plain(v.detach()) for k, v in metrics.items()})
 
     def accumulated(params: Any, batch: Batch) -> Tuple[list, Dict[str, torch.Tensor]]:
         mu = sc.microbatches
-        acc = [torch.zeros(p.shape, dtype=sc.accum_dtype, device=p.device)
-               for p in tree_leaves(params)]
+        acc = [torch.zeros_like(p, dtype=sc.accum_dtype) for p in tree_leaves(params)]
         per_mb = []
         for i in range(mu):
             mb = {k: v.reshape((mu, v.shape[0] // mu) + tuple(v.shape[1:]))[i]
@@ -97,7 +155,7 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
         grads, gnorm = clip_by_global_norm(grads, sc.clip_norm)
         new_params, new_opt = optimizer.update(params, grads, state["opt_state"],
                                                state["step"])
-        metrics["grad_norm"] = gnorm
+        metrics["grad_norm"] = to_plain(gnorm)
         return ({"params": new_params, "opt_state": new_opt,
                  "step": state["step"] + 1}, metrics)
 

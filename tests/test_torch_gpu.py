@@ -1,5 +1,6 @@
 """The hand-written kernels against their plain versions, on the card,
-and the checkpoints and trainer of the port on the card.
+the checkpoints and trainer of the port on the card, and the mesh path:
+the KND runtime's mesh over NCCL and the kernels on DTensors.
 
 Every test here needs a CUDA device (the CUDA kernels have no CPU mode)
 and skips without one. The file imports no JAX, so it runs on
@@ -458,3 +459,75 @@ def test_trainer_resumes_bit_equal_on_the_card(cuda, tmp_path):
     b.fit(1)
     want = a.history[-1]["loss"]
     assert abs(b.history[-1]["loss"] - want) <= 1e-6 * abs(want)
+
+
+# ---------------------------------------------------------------------------
+# The mesh path: an NCCL group of world size 1, DTensors on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    """The KND runtime's 1 x 1 data x model mesh over NCCL, world size 1."""
+    import torch.distributed as dist
+    from repro_torch.core import AttachmentSpec, DeviceBinding, MeshRuntime
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'rdzv'}",
+                            rank=0, world_size=1)
+    spec = AttachmentSpec(("data", "model"), (1, 1), [DeviceBinding("chip0", (0, 0))])
+    yield MeshRuntime().execute(spec)
+    dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_mesh_runtime_over_nccl(nccl_mesh):
+    assert nccl_mesh.device_type == "cuda"
+    assert nccl_mesh.mesh_dim_names == ("data", "model")
+    assert nccl_mesh.mesh.tolist() == [[0]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_on_a_dtensor_launches_the_kernel(nccl_mesh, dtype):
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(8, 64, 2560, device="cuda", generator=g).to(dtype)
+    s = 1 + 0.1 * torch.randn(2560, device="cuda", generator=g)
+    xd = distribute_tensor(x, nccl_mesh, [Shard(0), Shard(2)])
+    sd = distribute_tensor(s, nccl_mesh, [Replicate(), Replicate()])
+    before = launch_counts()["rmsnorm"]
+    out = rmsnorm(xd, sd)
+    torch.cuda.synchronize()
+    assert launch_counts()["rmsnorm"] == before + 1
+    assert isinstance(out, DTensor) and out.device.type == "cuda"
+    err = float((out.to_local().float() - rmsnorm_ref(x.float(), s)).abs().max())
+    assert err < tol(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_on_a_dtensor_launches_the_kernel(nccl_mesh, dtype):
+    from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn(2, 200, 32, 80, device="cuda", generator=g).to(dtype)
+    k = torch.randn(2, 200, 8, 80, device="cuda", generator=g).to(dtype)
+    v = torch.randn(2, 200, 8, 80, device="cuda", generator=g).to(dtype)
+    qd, kd, vd = (distribute_tensor(t, nccl_mesh, [Shard(0), Shard(1)]) for t in (q, k, v))
+    before = launch_counts()["flash_attention"]
+    out = flash_attention(qd, kd, vd, True, 0)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == before + 1
+    assert isinstance(out, DTensor) and out.device.type == "cuda"
+    ref = attention_ref(q.float(), k.float(), v.float(), causal=True, window=0)
+    row = (out.to_local().float() - ref).abs().amax(-1) / ref.pow(2).mean(-1).sqrt()
+    assert float(row.max()) <= (1e-4 if dtype == torch.float32 else 5e-2)
+
+
+@pytest.mark.gpu
+def test_ssd_chunk_on_a_dtensor_raises(nccl_mesh):
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    shapes = [(1, 2, 16, 8), (1, 2, 16, 8), (1, 2, 16, 2, 8), (1, 2, 16, 2), (1, 2, 16, 2)]
+    ins = [distribute_tensor(torch.zeros(s, device="cuda"), nccl_mesh,
+                             [Replicate(), Replicate()]) for s in shapes]
+    before = launch_counts()["ssd_chunk"]
+    with pytest.raises(NotImplementedError, match="later slice"):
+        ssd_chunk(*ins)
+    assert launch_counts()["ssd_chunk"] == before

@@ -11,10 +11,12 @@ internvl2-1b (vision) and musicgen-medium (audio) at full width and full
 depth, and arctic-480b and grok-1-314b (moe) at full width and reduced
 depth (2 and 4 layers: neither fits one 80 GB card whole), trains
 internvl2-1b at full size, trains h2o-danube-1.8b at full size through
-the train launcher, round-trips a full-width checkpoint through the
-trainer, and plans a mesh through the KND core and trains h2o-danube-1.8b
-at full size on it, with random weights from a seed, in phases (each logs
-its seconds):
+the train launcher, plans a mesh through the KND core and trains
+h2o-danube-1.8b at full size on it, serves and trains h2o-danube-1.8b at
+full size through the launchers' control-plane flags (a reconciled
+replica set; a mesh the AttachmentController built) and round-trips a
+full-width checkpoint of the sharded state through the train launcher,
+with random weights from a seed, in phases (each logs its seconds):
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc for the three CUDA libraries (RMSNorm, flash attention,
@@ -64,17 +66,9 @@ its seconds):
      size (AdamW, cosine schedule, remat full, 2 microbatches);
   15. the train launcher (``repro_torch.launch.train.main``) on
      h2o-danube-1.8b at full size: TRAIN_LAUNCH_STEPS steps of 8 x 64
-     tokens, AdamW on the launcher's cosine schedule, remat dots, dense
-     attention (the launcher's "auto"), no checkpoint: completed steps,
-     finite losses, peak memory;
-  16. checkpoints: danube at full width and CKPT_LAYERS layers, remat
-     dots, the flash kernel: a Trainer with an async CheckpointManager
-     under build/ fits 5 steps and saves once, at step 3; a fresh
-     Trainer from another seed resumes to step 3 with every leaf
-     bit-equal to the state cloned at that step and on the card, and
-     its next step's loss equals the first trainer's step-4 loss within
-     1e-6 relative; logs the codec, raw and on-disk bytes and the save's
-     and the restore's seconds;
+     tokens, AdamW on the launcher's cosine schedule, remat dots, the
+     flash kernel (the launcher's choice on the card), no checkpoint:
+     completed steps, finite losses, peak memory;
   17. the mesh plan: the KND workflow (TPU and ICI driver discovery on a
      1 x 1 pod, a one-chip claim through the StructuredAllocator, an
      aligned data x model plan) and MeshRuntime.execute, which refuses
@@ -92,12 +86,34 @@ its seconds):
   19. pod mean: compressed_pod_mean over the mesh run's gradient tree with
      one pod over NCCL: int8 in every SUM all_reduce, every mean bit-equal
      to the plain arithmetic, the new error within one quantisation step;
-  11. the kernels line: launches on the nine paths, in this order
+  20. knd serve: danube at full size through the serve launcher, 4
+     requests, plain and then with ``--claim-chips 1 --state-dir
+     --node-plane`` (threaded informer): the workload Ready, one claim
+     per slot, the replica named after it, the SLO published into
+     ``outputs["slo"]``, every request's greedy tokens equal to the plain
+     run's; a rerun with 3 slots adopts both claims byte-identical and
+     stamps one (state under build/, removed after);
+  21. knd train: danube at full size through the train launcher, 2
+     steps of 8 x 64, the flash kernel, without and with ``--mesh 1x1
+     --devices 1 --state-dir --node-plane``: the ``[knd] MeshPlan``
+     line, losses and grad norms within 1e-4; a rerun adopts the claim
+     with its allocation unchanged;
+  16. checkpoints of the sharded state: danube at full width and
+     CKPT_LAYERS layers through the train launcher on the planned 1 x 1
+     mesh, 5 steps, an async save at step 3 (every leaf a DTensor,
+     gathered, written with the store co-checkpoint under build/,
+     removed after); restored into the unsharded state here and by a
+     ``--resume`` run into the sharded one, both bit-equal to the state
+     saved, the resumed losses equal within 1e-6, ``store.json`` loading
+     into a store with the saved fingerprint; logs the codec, bytes, the
+     gather's, snapshot's, write's and both restores' seconds;
+  11. the kernels line: launches on the eleven paths, in this order
      (phases 5-6, the dense path; 7-7c, the moe path; 10-10b, the hybrid
-     path; 12-12b, vision; 13-13b, audio; 14-14b, train; 15-16, trainer;
-     8-9, the ssm path; 17-19, mesh), each path's counts set to 0 just
-     before it (the mesh path: before each of its two runs) and read just
-     after and checked, and each kernel's time at its
+     path; 12-12b, vision; 13-13b, audio; 14-14b, train; 15, trainer;
+     8-9, the ssm path; 17-19, mesh; 20, knd serve; 21 and 16, knd
+     train), each path's counts set to 0 just before it (the mesh path:
+     before each of its two runs) and read just after and checked, and
+     each kernel's time at its
      paths' shapes (taken after phase 4b) beside its plain version, a
      PyTorch library call computing the same function where there is
      one, its bound and its own device time, summed over every CUDA
@@ -146,8 +162,16 @@ TRAIN_LAUNCH_STEPS = 4             # the train launcher's steps, danube at full 
 CKPT_LAYERS = 2
 CKPT_EVERY, CKPT_FIT = 3, 5        # one save, at step 3, in a fit of 5 steps
 CKPT_DIR = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+KND_SERVE_DIR = os.path.join(ROOT, "build", "chip_smoke_knd_serve")   # state dirs
+KND_TRAIN_DIR = os.path.join(ROOT, "build", "chip_smoke_knd_train")
+KND_REQUESTS = 4                   # the declarative serve path's requests
+KND_STEPS = 2                      # the declarative train path's steps per run
 MESH_STEPS = 3                     # danube's steps on the planned mesh, and without
 FRONTEND_REQUESTS = 4              # the frontends' serving requests
+# ticks per regime in each serving profile, timed and then profiled: few,
+# for the script's time (a profiled mamba2 tick records ~30 k kernels),
+# and enough, as device time per tick moves by under 2 % between runs
+PROFILE_TICKS = 4
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
@@ -279,24 +303,30 @@ def kernel_events(prof):
 def kernel_device_ms_by_name(fn, kernels, n: int = 20) -> dict:
     """Median device duration of each kernel in ``kernels`` (names) that
     one call of ``fn`` launches, over the launches torch.profiler
-    recorded; raises when it recorded none of one of them. The median of
-    each kernel's own records, not a sum over the window divided by
-    ``n``, so a record the profiler drops cannot shrink the time."""
+    recorded. The median of each kernel's own records, not a sum over
+    the window divided by ``n``, so a record the profiler drops cannot
+    shrink the time. The profiler on the card machine loses a contiguous
+    run of records in a few percent of sessions (``prefill_timing``), so
+    up to PROFILE_SESSIONS sessions are run and the first that recorded
+    every kernel is read; raises when none did."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for kernel in kernels:
-        us = [e.device_time_total for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
-        check(bool(us), f"torch.profiler recorded no device activity named {kernel!r}")
-        out[kernel] = statistics.median(us) / 1e3
-    return out
+    for _ in range(PROFILE_SESSIONS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = {kernel: [e.device_time_total for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and kernel in e.name] for kernel in kernels}
+        if all(us.values()):
+            break
+    missing = [k for k, v in us.items() if not v]
+    check(not missing, f"torch.profiler recorded no device activity named {missing} "
+                       f"in {PROFILE_SESSIONS} sessions")
+    return {kernel: statistics.median(v) / 1e3 for kernel, v in us.items()}
 
 
 def kernel_device_ms(fn, kernel: str, n: int = 20) -> float:
@@ -1077,9 +1107,9 @@ def phase_train_launcher():
     8 x 64, no checkpoint. Checks the completed steps and that both
     reported losses are finite; logs the launcher's report, ms per step
     (from its steps/s, the first step included) and the peak memory.
-    Returns the launches: per step 4L+1 RMSNorm (remat dots reruns the
-    layer bodies' forward) and no flash (the launcher's "auto" attention
-    is dense at S <= 8192)."""
+    Returns the launches: per step 2L flash and 4L+1 RMSNorm (remat dots
+    reruns the layer bodies' forward; on the card the launcher attends
+    through the flash kernel, built for danube's head dim)."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.launch import train as launch_train
@@ -1095,128 +1125,338 @@ def phase_train_launcher():
           and math.isfinite(out["result"]["final_loss"]), f"train launcher losses: {out}")
     log(f"[train launcher] {json.dumps({**out, 'layers': cfg.num_layers, 'params': cfg.param_count(), 'batch': 8, 'seq': 64, 'remat': 'dots', 'ms_per_step': 1e3 / out['steps_per_s'], 'seconds_with_init': seconds, 'max_memory_allocated_bytes': torch.cuda.max_memory_allocated()})}")
     torch.cuda.empty_cache()
-    return {"flash_attention": 0, "ssd_chunk": 0,
+    return {"flash_attention": TRAIN_LAUNCH_STEPS * 2 * cfg.num_layers, "ssd_chunk": 0,
             "rmsnorm": TRAIN_LAUNCH_STEPS * (4 * cfg.num_layers + 1)}
 
 
+class Tee:
+    """Writes to several streams: a launcher's output shown and kept."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for st in self.streams:
+            st.write(text)
+        return len(text)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
+
+
+def run_launcher(main, argv):
+    """A launcher's ``main(argv)`` and the text it printed (also shown)."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(Tee(sys.stdout, buf)):
+        out = main(argv)
+    return out, buf.getvalue()
+
+
+def rel_diffs(a, b):
+    return [abs(x - y) / abs(y) for x, y in zip(a, b)]
+
+
+def free_cuda():
+    import torch
+    gc.collect()               # trainers and their buses hold cycles
+    torch.cuda.empty_cache()
+
+
 def phase_checkpoint():
-    """A checkpoint of danube at full width and CKPT_LAYERS layers
-    through the Trainer's NRI drivers: trainer A (AdamW, remat dots, the
-    flash kernel, 8 x 64 tokens) fits CKPT_FIT steps with an async
-    CheckpointManager saving every CKPT_EVERY; a driver clones the state
-    at that STEP_END. Trainer B, built afresh from seed 1, resumes: the
-    step is CKPT_EVERY, every leaf bit-equal to the clone and on the card,
-    the state's step one more; B's next step's loss equals A's at that
-    step within 1e-6 relative. Logs the codec, raw and on-disk bytes, the
-    save's host snapshot and file write (through ``wait()``), the
-    restore's seconds and the process's peak host memory before and
-    after. Returns the launches: per step 2L flash and 4L+1 RMSNorm (remat
-    reruns the layer bodies), for A's steps and B's one."""
-    import resource
+    """A checkpoint of the sharded state, through the train launcher on
+    the KND-planned 1 x 1 mesh: danube at full width and CKPT_LAYERS
+    layers (``--layers``), remat dots, the flash kernel, 8 x 64 tokens,
+    the launcher's cosine schedule. Run A (``--mesh 1x1 --devices 1
+    --ckpt-dir``) fits CKPT_FIT steps and saves once, at step CKPT_EVERY:
+    every leaf a DTensor, gathered with ``full_tensor()`` on the calling
+    thread, written by rank 0 with the store co-checkpoint. Then this
+    process restores that checkpoint into the unsharded state (plain
+    tensors on the card). Run B (``--resume``, the same mesh, no state
+    directory) adopts the checkpointed store and restores the sharded
+    state. Both restores must be bit-equal to the state A saved (a copy
+    gathered when it saved), B's leaves DTensors on B's mesh with the
+    placements of the state they restore into; B's first loss (step
+    CKPT_EVERY + 1) equals A's within 1e-6 relative; ``store.json`` loads
+    into a store whose ``store_fingerprint`` is the saved file's sha256.
+    Logs the codec, bytes, gather, snapshot, write and both restores'
+    seconds and MB/s. Returns the launches: per step 2L flash and 4L+1
+    RMSNorm (remat reruns the layer bodies), CKPT_FIT steps in each run."""
+    import hashlib
     import shutil
     import torch
-    from repro_torch.ckpt.checkpoint import SHARD, CheckpointManager, list_checkpoints
+    from torch.distributed.tensor import DTensor
+    from repro_torch.api import load_store, store_fingerprint
+    from repro_torch.ckpt import checkpoint as ckpt
     from repro_torch.configs.registry import get_config
-    from repro_torch.core import Events, KNDDriver
-    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch import train as launch_train
     from repro_torch.train.optimizer import AdamW
-    from repro_torch.train.schedule import constant_schedule
-    from repro_torch.train.train_step import StepConfig
-    from repro_torch.train.trainer import Trainer
+    from repro_torch.train.schedule import cosine_schedule
+    from repro_torch.train.train_step import init_train_state
     from repro_torch.tree import tree_flatten_with_paths
-
-    class TimedCheckpoints(CheckpointManager):
-        """Times ``save`` (the host snapshot; the files are written by a
-        thread) and the wait that follows it (the file write)."""
-        saved_at = snapshot_s = write_s = None
-
-        def save(self, step, tree):
-            t0 = time.perf_counter()
-            super().save(step, tree)
-            self.saved_at = time.perf_counter()
-            self.snapshot_s = self.saved_at - t0
-
-        def wait(self):
-            super().wait()
-            if self.saved_at is not None and self.write_s is None:
-                self.write_s = time.perf_counter() - self.saved_at
-
-    class CloneAt(KNDDriver):
-        name = "clone.chip-smoke"
-
-        def __init__(self, step):
-            super().__init__()
-            self.step, self.state = step, None
-
-        def register(self, bus):
-            bus.subscribe(Events.STEP_END, self.on_end, self.name)
-
-        def on_end(self, event):
-            if int(event.context["step"]) == self.step:
-                self.state = tree_map(lambda t: t.clone(), event.context["state"])
 
     cfg = get_config(ARCH).replace(num_layers=CKPT_LAYERS)
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    saved, timing, sharded = {}, {}, {}
+    cls = ckpt.CheckpointManager
+    save, wait, restore_latest, gathered = (cls.save, cls.wait, cls.restore_latest,
+                                            ckpt._gathered)
 
-    def trainer(drivers):
-        return Trainer(cfg, AdamW(constant_schedule(1e-4)),
-                       SyntheticLMData(cfg, 8, 64, seed=SEED),
-                       step_cfg=StepConfig(remat="dots", attention_impl="kernel"),
-                       ckpt=TimedCheckpoints(CKPT_DIR, async_save=True),
-                       ckpt_every=CKPT_EVERY, drivers=drivers, device=DEVICE)
+    def full(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
 
-    rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
-    clone = CloneAt(CKPT_EVERY)
-    a = trainer([clone])
-    a.init(SEED)
-    out = a.fit(CKPT_FIT)
-    check(out["completed"] == CKPT_FIT and list_checkpoints(CKPT_DIR) == [CKPT_EVERY],
-          f"checkpoint: fit {out}, checkpoints {list_checkpoints(CKPT_DIR)}")
-    rss1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    def timed_gathered(tree):
+        t0 = time.perf_counter()
+        out = gathered(tree)
+        torch.cuda.synchronize()
+        timing["gather_s"] = time.perf_counter() - t0
+        return out
+
+    def timed_save(self, step, tree):
+        # the state as saved, kept to hold both restores against
+        # (a comparison: its gather is not the save's)
+        saved.update((k, full(t).clone()) for k, t in tree_flatten_with_paths(tree))
+        saved["_dtensors"] = sum(isinstance(t, DTensor) for _, t in tree_flatten_with_paths(tree))
+        t0 = time.perf_counter()
+        save(self, step, tree)
+        timing["saved_at"] = time.perf_counter()
+        timing["snapshot_s"] = timing["saved_at"] - t0
+
+    def timed_wait(self):
+        wait(self)
+        if "saved_at" in timing and "write_s" not in timing:
+            timing["write_s"] = time.perf_counter() - timing["saved_at"]
+
+    def checked_restore(self, tree_like):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree, step = restore_latest(self, tree_like)
+        torch.cuda.synchronize()
+        timing["restore_sharded_s"] = time.perf_counter() - t0
+        bad = []
+        for (key, like), (_, got) in zip(tree_flatten_with_paths(tree_like),
+                                         tree_flatten_with_paths(tree)):
+            if isinstance(like, DTensor):
+                ok = (isinstance(got, DTensor) and got.device_mesh is like.device_mesh
+                      and got.placements == like.placements)
+            else:
+                ok = not isinstance(got, DTensor)
+            if not (ok and full(got).device.type == torch.device(DEVICE).type
+                    and torch.equal(full(got), saved[key])):
+                bad.append(key)
+        sharded.update(step=step, bad=bad,
+                       dtensors=sum(isinstance(t, DTensor)
+                                    for _, t in tree_flatten_with_paths(tree)))
+        return tree, step
+
+    base = ["--arch", ARCH, "--layers", str(CKPT_LAYERS), "--steps", str(CKPT_FIT),
+            "--batch", "8", "--seq", "64", "--device", DEVICE,
+            "--mesh", "1x1", "--devices", "1", "--ckpt-dir", CKPT_DIR]
+    cls.save, cls.wait, cls.restore_latest = timed_save, timed_wait, checked_restore
+    ckpt._gathered = timed_gathered
+    try:
+        a = launch_train.main(base + ["--ckpt-every", str(CKPT_EVERY)])
+        check(a["result"]["completed"] == CKPT_FIT
+              and ckpt.list_checkpoints(CKPT_DIR) == [CKPT_EVERY],
+              f"checkpoint: run A {a['result']}, checkpoints "
+              f"{ckpt.list_checkpoints(CKPT_DIR)}")
+        check(saved["_dtensors"] > 0, "run A saved no DTensor leaf")
+        free_cuda()
+        # the same checkpoint into the unsharded state
+        like = init_train_state(cfg, AdamW(cosine_schedule(1e-3, 1, CKPT_FIT)), 1, DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain, step = ckpt.restore_checkpoint(CKPT_DIR, like)
+        torch.cuda.synchronize()
+        restore_plain_s = time.perf_counter() - t0
+        leaves = tree_flatten_with_paths(plain)
+        check(step == CKPT_EVERY and sorted(k for k, _ in leaves)
+              == sorted(k for k in saved if k != "_dtensors"),
+              f"unsharded restore: step {step}, leaves differ from the saved")
+        for key, got in leaves:
+            check(not isinstance(got, DTensor) and got.device.type == torch.device(DEVICE).type
+                  and torch.equal(got, saved[key]),
+                  f"unsharded restore: leaf {key} is not the saved one, bit for bit")
+        del like, plain, leaves
+        free_cuda()
+        b, text = run_launcher(launch_train.main, base + ["--resume", "--ckpt-every", "1000"])
+    finally:
+        cls.save, cls.wait, cls.restore_latest = save, wait, restore_latest
+        ckpt._gathered = gathered
+    check(f"[resume] from step {CKPT_EVERY}" in text and "[knd] adopted checkpointed store" in text,
+          "run B did not resume from the checkpoint and its store")
+    check(sharded.get("step") == CKPT_EVERY and not sharded["bad"] and sharded["dtensors"] > 0,
+          f"sharded restore: {sharded}")
+    # the checkpoint of step CKPT_EVERY holds the state after it: B
+    # trains from step CKPT_EVERY + 1, A's last step
+    rel = rel_diffs(b["losses"][:1], a["losses"][CKPT_EVERY + 1:])
+    check(max(rel) <= 1e-6, f"resumed losses {b['losses']} vs {a['losses']}: rel {rel}")
     step_dir = os.path.join(CKPT_DIR, f"step_{CKPT_EVERY:08d}")
+    with open(os.path.join(step_dir, "store.json"), "rb") as f:
+        blob = f.read()
+    store = load_store(json.loads(blob))
+    check(store_fingerprint(store) == hashlib.sha256(blob).hexdigest()
+          and store.try_get("Workload", "train-job") is not None,
+          "store.json does not load into the store it saved")
     with open(os.path.join(step_dir, "manifest.json")) as f:
         manifest = json.load(f)
-    raw = sum(t.numel() * t.element_size() for _, t in tree_flatten_with_paths(clone.state))
-    disk = os.path.getsize(os.path.join(step_dir, SHARD))
-
-    b = trainer([])
-    b.init(seed=1)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    step = b.resume()
-    torch.cuda.synchronize()
-    restore_s = time.perf_counter() - t0
-    check(step == CKPT_EVERY, f"resume returned {step}, want {CKPT_EVERY}")
-    got, want = tree_flatten_with_paths(b.state), tree_flatten_with_paths(clone.state)
-    check([k for k, _ in got] == [k for k, _ in want], "restored leaves differ from the saved")
-    for (key, g), (_, w) in zip(got, want):
-        check(g.device.type == torch.device(DEVICE).type and g.dtype == w.dtype
-              and torch.equal(g, w), f"restored leaf {key} is not the saved one, bit for bit")
-    check(int(b.state["step"]) == CKPT_EVERY + 1, f"restored step {int(b.state['step'])}")
-    b.fit(1)
-    loss_a = a.history[CKPT_EVERY + 1]
-    loss_b = b.history[-1]
-    check(loss_a["step"] == loss_b["step"] == CKPT_EVERY + 1, f"{loss_a} vs {loss_b}")
-    rel = abs(loss_b["loss"] - loss_a["loss"]) / abs(loss_a["loss"])
-    check(rel <= 1e-6, f"resumed loss {loss_b['loss']} vs {loss_a['loss']}: rel {rel} > 1e-6")
-    rss2 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
-    mgr = a.ckpt
+    raw = sum(t.numel() * t.element_size() for k, t in saved.items() if k != "_dtensors")
+    disk = os.path.getsize(os.path.join(step_dir, ckpt.SHARD))
     report = {
         "arch": cfg.name, "layers": CKPT_LAYERS, "params": cfg.param_count(),
-        "leaves": len(want), "codec": manifest["codec"], "raw_bytes": raw, "disk_bytes": disk,
-        "snapshot_s": mgr.snapshot_s, "write_s": mgr.write_s,
-        "write_mb_per_s": raw / mgr.write_s / 1e6, "restore_s": restore_s,
-        "restore_mb_per_s": raw / restore_s / 1e6, "resumed_step": step,
-        "loss_step": loss_a["step"], "loss_a": loss_a["loss"], "loss_b": loss_b["loss"],
-        "loss_rel_diff": rel, "losses_a": [h["loss"] for h in a.history],
-        "host_maxrss_kb": [rss0, rss1, rss2]}
+        "mesh": "1x1", "leaves": len(saved) - 1, "dtensor_leaves": saved["_dtensors"],
+        "codec": manifest["codec"], "raw_bytes": raw, "disk_bytes": disk,
+        "gather_s": timing["gather_s"], "snapshot_s": timing["snapshot_s"],
+        "write_s": timing["write_s"], "write_mb_per_s": raw / timing["write_s"] / 1e6,
+        "restore_sharded_s": timing["restore_sharded_s"],
+        "restore_sharded_mb_per_s": raw / timing["restore_sharded_s"] / 1e6,
+        "restore_plain_s": restore_plain_s,
+        "restore_plain_mb_per_s": raw / restore_plain_s / 1e6,
+        "store_objects": len(store), "losses_a": a["losses"], "losses_b": b["losses"],
+        "loss_rel_diff": rel}
     log(f"[checkpoint] codec {manifest['codec']}; {json.dumps(report)}")
-    del a, b, clone, got, want
+    saved.clear()
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
-    torch.cuda.empty_cache()
-    steps = CKPT_FIT + 1
-    return {"flash_attention": steps * 2 * CKPT_LAYERS, "ssd_chunk": 0,
-            "rmsnorm": steps * (4 * CKPT_LAYERS + 1)}
+    free_cuda()
+    return {"flash_attention": 2 * CKPT_FIT * 2 * CKPT_LAYERS, "ssd_chunk": 0,
+            "rmsnorm": 2 * CKPT_FIT * (4 * CKPT_LAYERS + 1)}
+
+
+def served_requests(argv):
+    """The serve launcher's report, its requests in uid order and its
+    engines' ticks (read through ``Router.run``)."""
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve.router import Router
+    run = Router.run
+    done, routers = [], {}
+
+    def recording(self, *args, **kw):
+        out = run(self, *args, **kw)
+        done.extend(out)
+        routers[id(self)] = self
+        return out
+
+    Router.run = recording
+    try:
+        out, text = run_launcher(launch_serve.main, argv)
+    finally:
+        Router.run = run
+    ticks = sum(e.steps for r in routers.values() for e in r._replicas.values())
+    return out, text, sorted(done, key=lambda r: r.uid), ticks
+
+
+def phase_knd_serve():
+    """[knd serve]: h2o-danube-1.8b at full size served through the serve
+    launcher, KND_REQUESTS requests of 8 new tokens, 2 slots: first as
+    plain (no control plane), then from a reconciled replica set
+    (``--claim-chips 1 --state-dir --node-plane``, the informer threaded):
+    the workload Ready, one claim per slot, the router's replica named
+    after the stamped claim, ``outputs["slo"]`` holding the published
+    TTFT and TPOT, the informer reconciling at least once, and every
+    request's greedy tokens equal to the plain run's. Then ``--slots 3``
+    on the same state directory adopts both recovered claims with
+    byte-identical allocations (``allocation_records``) and stamps
+    exactly one. Returns the launches: 2L+1 RMSNorm per engine tick of
+    the three runs, no flash (the engine's ticks are paged decode)."""
+    import shutil
+    from repro_torch.api import allocation_records, recover_store
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(ARCH)
+    shutil.rmtree(KND_SERVE_DIR, ignore_errors=True)
+    base = ["--arch", ARCH, "--requests", str(KND_REQUESTS), "--new-tokens", "8",
+            "--device", DEVICE]
+    knd = ["--claim-chips", "1", "--state-dir", KND_SERVE_DIR, "--node-plane"]
+    plain, _, plain_reqs, ticks_plain = served_requests(base + ["--slots", "2"])
+    free_cuda()
+    out, text, reqs, ticks = served_requests(base + ["--slots", "2"] + knd)
+    free_cuda()
+    claims = out["knd"]["replica_claims"]
+    store, _ = recover_store(KND_SERVE_DIR)
+    wl = store.get("Workload", "serve")
+    slo = wl.status.outputs.get("slo", {}).get("baseline", {})
+    before = allocation_records(store)
+    check("[knd] serve replica set Ready: 2 claims (1 chips each)" in text
+          and wl.is_true("Ready", current=True) and len(claims) == 2
+          and sorted(before) == claims and list(out["dispatch"]) == claims[:1],
+          f"knd serve: claims {claims}, records {sorted(before)}, dispatch {out['dispatch']}")
+    check(all(slo.get(k, 0) > 0 for k in ("p50_ttft_ms", "p95_ttft_ms",
+                                           "p50_tpot_ms", "p95_tpot_ms")),
+          f"knd serve: outputs['slo'] {wl.status.outputs.get('slo')}")
+    check(out["knd"]["informer"]["reconciled"] > 0, f"knd serve: informer {out['knd']}")
+    check(out["completed"] == plain["completed"] == KND_REQUESTS
+          and [r.generated for r in reqs] == [r.generated for r in plain_reqs],
+          "knd serve: the greedy tokens differ from the plain launcher's")
+    again, text2, _, ticks_again = served_requests(base + ["--slots", "3"] + knd)
+    free_cuda()
+    store, _ = recover_store(KND_SERVE_DIR)
+    after = allocation_records(store)
+    check("[knd] recovered" in text2 and "'adopted': 2" in text2
+          and len(again["knd"]["replica_claims"]) == 3
+          and {k: after[k] for k in before} == before and len(set(after) - set(before)) == 1,
+          f"knd serve resize: {again['knd']}, records {sorted(after)}")
+    report = {"arch": ARCH, "requests": KND_REQUESTS, "new_tokens": 8,
+              "replica_claims": claims, "submit_to_ready_ms": out["knd"]["submit_to_ready_ms"],
+              "informer": out["knd"]["informer"], "slo": wl.status.outputs["slo"],
+              "resized_claims": again["knd"]["replica_claims"],
+              "resized_submit_to_ready_ms": again["knd"]["submit_to_ready_ms"],
+              "resized_informer": again["knd"]["informer"],
+              "ticks": [ticks_plain, ticks, ticks_again], "sample": out["sample"]}
+    log(f"[knd serve] {json.dumps(report)}")
+    shutil.rmtree(KND_SERVE_DIR, ignore_errors=True)
+    return {"flash_attention": 0, "ssd_chunk": 0,
+            "rmsnorm": (ticks_plain + ticks + ticks_again) * (2 * cfg.num_layers + 1)}
+
+
+def phase_knd_train():
+    """[knd train]: h2o-danube-1.8b at full size through the train
+    launcher, KND_STEPS steps of 8 x 64, remat dots, the flash kernel:
+    first without a mesh, then with ``--mesh 1x1 --devices 1 --state-dir
+    --node-plane`` (the claim and workload reconciled by the informer
+    threads, the ``DeviceMesh`` built on one of them by the
+    AttachmentController): the ``[knd] MeshPlan[aligned]`` line, each
+    step's loss and grad norm within 1e-4 relative of the run without a
+    mesh. A third run on the same state directory adopts the claim with
+    its allocation unchanged. Logs ms per step (the launcher's steps/s).
+    Returns the launches: per step 2L flash and 4L+1 RMSNorm, three runs."""
+    import shutil
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train as launch_train
+    cfg = get_config(ARCH)
+    L = cfg.num_layers
+    shutil.rmtree(KND_TRAIN_DIR, ignore_errors=True)
+    base = ["--arch", ARCH, "--steps", str(KND_STEPS), "--batch", "8", "--seq", "64",
+            "--device", DEVICE]
+    knd = ["--mesh", "1x1", "--devices", "1", "--state-dir", KND_TRAIN_DIR, "--node-plane"]
+    plain = launch_train.main(base)
+    free_cuda()
+    meshed, text = run_launcher(launch_train.main, base + knd)
+    free_cuda()
+    rels = {k: rel_diffs(meshed[k], plain[k]) for k in ("losses", "grad_norms")}
+    check("[knd] MeshPlan[aligned] data=1" in text and meshed["knd"]["mesh"]
+          == {"data": 1, "model": 1}, f"knd train: {meshed.get('knd')}")
+    for key, rel in rels.items():
+        check(len(rel) == KND_STEPS and max(rel) <= 1e-4,
+              f"knd train {key}: mesh {meshed[key]} vs {plain[key]}, rel {rel} > 1e-4")
+    again, text2 = run_launcher(launch_train.main, base + knd)
+    free_cuda()
+    check("[knd] recovered" in text2 and (again["knd"]["adopted"] or {}).get("adopted") == 1
+          and again["knd"]["allocation_records"] == meshed["knd"]["allocation_records"],
+          f"knd train rerun: {again['knd']}")
+    report = {"arch": ARCH, "params": cfg.param_count(), "steps": KND_STEPS, "batch": 8,
+              "seq": 64, "plan": meshed["knd"]["plan"],
+              "submit_to_ready_ms": [meshed["knd"]["submit_to_ready_ms"],
+                                     again["knd"]["submit_to_ready_ms"]],
+              "informer": [meshed["knd"]["informer"], again["knd"]["informer"]],
+              "adopted": again["knd"]["adopted"],
+              "losses": meshed["losses"], "grad_norms": meshed["grad_norms"],
+              "rel_diff": rels, "bit_equal": rels == {k: [0.0] * KND_STEPS for k in rels},
+              "ms_per_step_incl_first": {r: 1e3 / o["steps_per_s"] for r, o in
+                                         (("plain", plain), ("mesh", meshed), ("rerun", again))}}
+    log(f"[knd train] {json.dumps(report)}")
+    shutil.rmtree(KND_TRAIN_DIR, ignore_errors=True)
+    return {"flash_attention": 3 * KND_STEPS * 2 * L, "ssd_chunk": 0,
+            "rmsnorm": 3 * KND_STEPS * (4 * L + 1)}
 
 
 @contextlib.contextmanager
@@ -1580,7 +1820,7 @@ def phase_profile(cfg, params, rng):
         eng.submit(rng.randint(0, cfg.vocab_size, size=512).tolist(),
                    max_new_tokens=200)
     out = {}
-    n = 8
+    n = PROFILE_TICKS
     with torch.no_grad():
         for regime in ("prefill_chunk16", "decode"):
             if regime == "decode":
@@ -2011,16 +2251,14 @@ def main() -> int:
     check(paths["train"] == add_launches(*want),
           f"train path launches {paths['train']} != {add_launches(*want)}")
 
-    # the trainer path: phases 15 (the train launcher at full size) and 16
-    # (the checkpoint round trip), counted exactly, remat's recompute
-    # launches included
+    # the trainer path: phase 15 (the train launcher at full size),
+    # counted exactly, remat's recompute launches included
     reset_launch_counts()
-    want = [timed("train launcher", phase_train_launcher),
-            timed("checkpoint", phase_checkpoint)]
+    want = timed("train launcher", phase_train_launcher)
     paths["trainer"] = launch_counts()
     log(f"[trainer path] kernel launches: {paths['trainer']}")
-    check(paths["trainer"] == add_launches(*want),
-          f"trainer path launches {paths['trainer']} != {add_launches(*want)}")
+    check(paths["trainer"] == want,
+          f"trainer path launches {paths['trainer']} != {want}")
 
     reset_launch_counts()                      # the ssm path: phases 8-9
     timed("ssm f32", phase_ssm_f32, rng)
@@ -2059,6 +2297,25 @@ def main() -> int:
     paths["mesh"] = add_launches(*runs.values())
     log(f"[mesh path] kernel launches: {paths['mesh']} ({runs})")
     torch.cuda.empty_cache()
+
+    # the declarative paths, after the mesh path (they open and destroy
+    # process groups of their own): phase 20 serves danube from a
+    # reconciled replica set; phase 21 trains it on a mesh the
+    # AttachmentController built, and phase 16 round-trips a checkpoint of
+    # the sharded state through the same launcher; each path's launches
+    # set to 0 just before it and checked exactly just after
+    reset_launch_counts()
+    want = timed("knd serve", phase_knd_serve)
+    paths["knd_serve"] = launch_counts()
+    log(f"[knd serve path] kernel launches: {paths['knd_serve']}")
+    check(paths["knd_serve"] == want,
+          f"knd serve path launches {paths['knd_serve']} != {want}")
+    reset_launch_counts()
+    want = [timed("knd train", phase_knd_train), timed("checkpoint", phase_checkpoint)]
+    paths["knd_train"] = launch_counts()
+    log(f"[knd train path] kernel launches: {paths['knd_train']}")
+    check(paths["knd_train"] == add_launches(*want),
+          f"knd train path launches {paths['knd_train']} != {add_launches(*want)}")
 
     for e in times:
         if e["name"] == "ssd_chunk":

@@ -29,6 +29,13 @@ What the format fixes, and the port keeps:
 The shard is streamed, leaf by leaf, into the compressor; a zstd frame
 carries the payload's size in its header (the JAX package decompresses
 it in one call, which needs that size).
+
+A sharded state (``DTensor`` leaves, training under a mesh) is saved in
+the same format: every rank gathers each leaf with ``full_tensor()``, in
+the same order, on the calling thread, and rank 0 alone writes. Restore
+reads the full leaf on every rank and places it back on the ``tree_like``
+leaf's mesh and placements (``distribute_tensor``), so a checkpoint
+restores sharded or unsharded whichever way it was written.
 """
 
 from __future__ import annotations
@@ -44,8 +51,10 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
-from ..tree import tree_flatten_with_paths, tree_map, tree_unflatten
+from ..tree import tree_flatten_with_paths, tree_leaves, tree_map, tree_unflatten
 from .msgpack_map import packed_chunks, packed_size, unpackb
 
 try:
@@ -89,6 +98,25 @@ def _torch_dtype(name: str) -> torch.dtype:
     except KeyError:
         raise ValueError(f"unknown checkpoint leaf dtype {name!r}; "
                          f"known: {sorted(DTYPES)}") from None
+
+
+def _gathered(tree: Any) -> Tuple[Any, bool]:
+    """``tree`` with every ``DTensor`` leaf gathered into its full tensor
+    (a collective: every rank calls this on the same tree), and whether
+    there was one."""
+    sharded = any(isinstance(t, DTensor) for t in tree_leaves(tree))
+    return tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor) else t,
+                    tree), sharded
+
+
+def _grouped() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def _writer(sharded: bool) -> bool:
+    """Whether this process writes a checkpoint: every process for an
+    unsharded tree, rank 0 alone for a gathered sharded one."""
+    return not (sharded and _grouped() and dist.get_rank() != 0)
 
 
 def _host_bytes(leaf: torch.Tensor) -> Any:
@@ -145,13 +173,17 @@ def save_checkpoint(directory: str, step: int, tree: Any,
                     compress_level: int = 3,
                     store_dump: Optional[Dict[str, Any]] = None) -> str:
     """Write one committed checkpoint of ``tree`` (a nested dict of
-    tensors, on any device); returns its path.
+    tensors, on any device; ``DTensor`` leaves are gathered, and then
+    rank 0 alone writes); returns its path.
 
     ``store_dump`` (a control-plane store dump dict) lands as
     ``store.json`` and is referenced from the manifest, making the
     control plane's object state part of the atomic commit.
     """
     path = os.path.join(directory, f"step_{step:08d}")
+    tree, sharded = _gathered(tree)
+    if not _writer(sharded):
+        return path
     tmp = path + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -227,7 +259,9 @@ def restore_checkpoint(directory: str, tree_like: Any,
     """Restore into the structure of ``tree_like`` (a nested dict of
     tensors; newest step if None). Each leaf takes the manifest's dtype
     and shape and lands on the device of ``tree_like``'s leaf at the same
-    path; leaves of the checkpoint that ``tree_like`` lacks are ignored."""
+    path, and where that leaf is a ``DTensor``, on its mesh with its
+    placements; leaves of the checkpoint that ``tree_like`` lacks are
+    ignored."""
     steps = list_checkpoints(directory)
     if not steps:
         raise FileNotFoundError(f"no committed checkpoints in {directory}")
@@ -253,11 +287,15 @@ def restore_checkpoint(directory: str, tree_like: Any,
             raise ValueError(f"leaf {key!r}: {len(raw)} bytes in the shard, "
                              f"{n} for {meta['dtype']} {shape}")
         if n == 0:
-            restored.append(torch.empty(shape, dtype=dtype, device=leaf.device))
-            continue
-        # bytes at any offset: copy them as uint8 (aligned) before the view
-        data = torch.frombuffer(raw, dtype=torch.uint8).to(leaf.device, copy=True)
-        restored.append(data.view(dtype).reshape(shape))
+            full = torch.empty(shape, dtype=dtype, device=leaf.device)
+        else:
+            # bytes at any offset: copy them as uint8 (aligned) before the view
+            data = torch.frombuffer(raw, dtype=torch.uint8).to(leaf.device,
+                                                               copy=True)
+            full = data.view(dtype).reshape(shape)
+        if isinstance(leaf, DTensor):
+            full = distribute_tensor(full, leaf.device_mesh, leaf.placements)
+        restored.append(full)
     return tree_unflatten(tree_like, restored), step
 
 
@@ -269,12 +307,15 @@ def _host_copy(t: torch.Tensor) -> torch.Tensor:
 class CheckpointManager:
     """Rotation + async save + resume, driven by trainer NRI hooks.
 
-    ``save`` copies the tree to the host before it returns; with
+    ``save`` copies the tree to the host before it returns (gathering
+    ``DTensor`` leaves first, on every rank, on the calling thread); with
     ``async_save`` a background thread then writes the files, and the
     next ``save``, ``wait`` or ``restore_latest`` joins it (re-raising
-    its error). ``store_provider`` is sampled synchronously at each
-    ``save`` so the network state in the checkpoint is consistent with
-    the step being written, even when the file write itself is async.
+    its error). Of a sharded tree rank 0 alone writes, and ``wait``
+    ends in a barrier, so no rank reads a checkpoint before it commits.
+    ``store_provider`` is sampled synchronously at each ``save`` so the
+    network state in the checkpoint is consistent with the step being
+    written, even when the file write itself is async.
     """
 
     directory: str
@@ -283,10 +324,15 @@ class CheckpointManager:
     store_provider: Optional[Callable[[], Dict[str, Any]]] = None
     _thread: Optional[threading.Thread] = field(default=None, repr=False)
     _error: Optional[BaseException] = field(default=None, repr=False)
+    _barrier: bool = field(default=False, repr=False)
 
     def save(self, step: int, tree: Any) -> None:
         self.wait()
         # snapshot to host BEFORE returning (async writes the files only)
+        tree, sharded = _gathered(tree)
+        self._barrier = sharded
+        if not _writer(sharded):
+            return
         host_tree = tree_map(_host_copy, tree)
         store_dump = (self.store_provider()
                       if self.store_provider is not None else None)
@@ -309,6 +355,12 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            # every rank saved the same sharded tree: the others wait
+            # here until rank 0's write has committed
+            self._barrier = False
+            if _grouped():
+                dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err

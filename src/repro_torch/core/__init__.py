@@ -8,6 +8,7 @@ Layers:
   nri/drivers         — composable lifecycle drivers on an event bus
   oci                 — declarative attachment executed by the runtime,
                         which builds a torch ``DeviceMesh``
+  lifecycle           — startup pipeline models (Table I)
 """
 
 from .attributes import AttributeSet, Quantity, Version

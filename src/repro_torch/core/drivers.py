@@ -15,9 +15,10 @@ Drivers never talk to each other (composability): the TPU driver and the
 interconnect driver below both subscribe to the same bus events and act
 in parallel, mirroring the paper's "GPU driver + DraNet" deployment.
 
-The port's ``DriverRegistry`` publishes and prepares centrally: the
-per-node agents that the JAX package's registry can route through come
-with the port's node plane.
+With a node plane attached (``DriverRegistry.node_plane``, the port's
+``node.agent.NodePlane``), central discovery publishes only nodes whose
+agent is alive and NodePrepareResources routes through the owning
+node's agent, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -276,6 +277,12 @@ class DriverRegistry:
     # mismatch means someone else mutated the pool (e.g. withdraw_node)
     # and the skip optimization must not suppress re-publication
     _pool_gen_at_publish: Optional[int] = None
+    # the attached node.agent.NodePlane, when the cluster runs per-node
+    # agents: central discovery then publishes only nodes whose agent is
+    # alive (a withdrawn node must not resurrect behind the lifecycle
+    # controller's back) and NodePrepareResources routes through the
+    # owning agents instead of straight into the drivers
+    node_plane: Any = None
 
     def add(self, driver: KNDDriver) -> "DriverRegistry":
         self.drivers[driver.name] = driver
@@ -308,6 +315,9 @@ class DriverRegistry:
             if not force and self.published_generations.get(driver.name) == gen:
                 continue
             for sl in driver.discover():
+                if (self.node_plane is not None
+                        and not self.node_plane.admits(sl.node)):
+                    continue        # dead/failed node: its agent owns it
                 self.pool.publish(sl)
                 n += len(sl)
                 published = True
@@ -331,13 +341,46 @@ class DriverRegistry:
         return n
 
     def prepare(self, claim: ResourceClaim) -> Dict[str, Dict[str, Any]]:
-        """NodePrepareResources across all drivers owning claim devices."""
+        """NodePrepareResources across all drivers owning claim devices.
+
+        With a node plane attached, the call routes through the owning
+        node's agent (kubelet -> per-node DRA driver, Fig. 4): a claim
+        whose devices sit on a node with a dead agent fails to prepare —
+        surfaced as a retryable ``Prepared=False`` condition, not a
+        silent central success the real system could never deliver.
+        """
         if claim.allocation is None:
             raise ValueError(f"claim {claim.name} not allocated")
         out: Dict[str, Dict[str, Any]] = {}
-        involved = {a.ref.driver for a in claim.allocation.devices}
-        for name in sorted(involved):
-            if name in self.drivers:
-                out[name] = self.drivers[name].node_prepare_resources(claim)
+        if self.node_plane is not None:
+            by_node: Dict[str, set] = {}
+            for a in claim.allocation.devices:
+                by_node.setdefault(a.ref.node, set()).add(a.ref.driver)
+            # every involved node must be serving — a single dead agent
+            # fails the whole prepare (retryable; eviction heals it)
+            dead = [n for n in sorted(by_node)
+                    if (ag := self.node_plane.agent(n)) is None
+                    or not ag.alive]
+            if dead:
+                from ..node.agent import NodeUnavailableError
+                raise NodeUnavailableError(
+                    f"claim {claim.name}: node(s) {dead} have no live "
+                    f"agent to serve NodePrepareResources")
+            # each driver's (claim-scoped) slow setup runs ONCE, served
+            # by the first live node owning it — not once per node,
+            # which would duplicate the setup k× and overwrite results
+            served: set = set()
+            for node in sorted(by_node):
+                todo = sorted(d for d in by_node[node]
+                              if d in self.drivers and d not in served)
+                if todo:
+                    out.update(self.node_plane.agent(
+                        node).node_prepare_resources(claim, todo))
+                    served.update(todo)
+        else:
+            involved = {a.ref.driver for a in claim.allocation.devices}
+            for name in sorted(involved):
+                if name in self.drivers:
+                    out[name] = self.drivers[name].node_prepare_resources(claim)
         self.bus.publish(Events.NODE_PREPARE_RESOURCES, claim=claim, prepared=out)
         return out

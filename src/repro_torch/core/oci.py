@@ -72,10 +72,13 @@ class MeshRuntime:
     """The privileged runtime executing attachments (OCI analogue).
 
     Only this class builds device meshes. Drivers and planners stay
-    declarative.
+    declarative. ``device_type`` is the device type of every mesh it
+    builds, so the control plane's AttachmentController calls
+    ``execute(spec)`` alone.
     """
 
-    def __init__(self) -> None:
+    def __init__(self, device_type: str = "cuda") -> None:
+        self.device_type = device_type
         self._executed: List[AttachmentSpec] = []
 
     @staticmethod
@@ -89,10 +92,10 @@ class MeshRuntime:
             grid[b.mesh_coord] = rank
         return grid
 
-    def execute(self, spec: AttachmentSpec, device_type: Optional[str] = None):
+    def execute(self, spec: AttachmentSpec):
         """Build a ``DeviceMesh`` realizing the attachment over the
-        initialised default process group, one rank per binding, on
-        ``device_type`` (``None`` = ``"cuda"``).
+        initialised default process group, one rank per binding, on this
+        runtime's device type.
 
         Raises when no process group is initialised or its world size
         is not the number of bindings: a mesh never silently shrinks to
@@ -112,7 +115,8 @@ class MeshRuntime:
             raise RuntimeError(
                 f"MeshRuntime.execute: the {spec.axis_shape} mesh binds "
                 f"{grid.size} devices, the process group has {world} ranks")
-        mesh = DeviceMesh(device_type or "cuda", torch.from_numpy(grid),
+        mesh = DeviceMesh(self.device_type,
+                          torch.from_numpy(grid),
                           mesh_dim_names=tuple(spec.axis_names))
         self._executed.append(spec)
         return mesh

@@ -2,19 +2,89 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --requests 8 --new-tokens 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --claim-chips 2 --state-dir /tmp/serve-state --node-plane
 
 Requests go through the front-end :class:`~repro_torch.serve.router.
 Router` over ``--replicas`` engine replicas (load-aware dispatch,
 bounded per-replica queues); the report carries the SLO tracker's
 measured TTFT/TPOT percentiles. ``--device`` defaults to the GPU.
+
+With ``--claim-chips N`` the serve replica set is provisioned
+declaratively first, as in the JAX package's launcher: a
+ResourceClaimTemplate + a serve Workload are submitted to the API store,
+the WorkloadController stamps one claim per replica slot, and serving
+starts once the workload's Ready condition is True. Router replicas are
+then named after the stamped claims, and the SLO snapshot is published
+back into the workload's ``outputs["slo"]`` on the main thread, after
+the router has drained. The informer and node-agent threads touch no
+tensor: every CUDA call stays on the main thread.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import time
 from typing import Any, Dict, List, Optional
+
+
+def provision_replicas(slots: int, chips_per_replica: int,
+                       state_dir: Optional[str] = None,
+                       reconcile_mode: str = "threaded",
+                       node_plane: bool = False):
+    """Declarative serve replica set -> (plane, workload ApiObject).
+
+    With ``state_dir``, an existing WAL is recovered first: the stamped
+    replica claims are adopted with their allocations intact and the
+    workload only converges on a *delta* (e.g. a changed ``slots``).
+
+    ``reconcile_mode="threaded"`` (default) starts a
+    :class:`~repro_torch.api.runtime.ControlPlaneRuntime` whose informer
+    threads keep reconciling while the serve engine runs; it is left
+    running on ``plane.informer`` and the caller stops it.
+
+    ``node_plane=True`` runs per-node agents: replica claims are placed
+    by the topology scheduler. The started
+    :class:`~repro_torch.node.NodePlane` is reachable as
+    ``plane.registry.node_plane``; the caller stops it.
+    """
+    from .. import core
+    from ..api import ControlPlane, ControlPlaneRuntime, Workload
+    from ..topology.tpu import TpuPodSpec, build_tpu_cluster
+
+    need = slots * chips_per_replica
+    side = max(2, 2 * math.ceil(math.sqrt(need) / 2))  # even torus side
+    cluster = build_tpu_cluster(1, TpuPodSpec(x=side, y=side))
+    reg = core.DriverRegistry()
+    reg.add(core.TpuDriver(cluster)).add(core.IciDriver(cluster))
+    plane = ControlPlane.open(state_dir, reg, cluster)
+    if node_plane:
+        from ..node import NodePlane
+        NodePlane(plane).start()     # agents first (fresh leases), then
+    if reconcile_mode == "threaded":  # the informer
+        ControlPlaneRuntime(plane).start()   # reachable as plane.informer
+
+    if plane.store.try_get("ResourceClaimTemplate", "serve-replica") is None:
+        plane.submit(core.ResourceClaimTemplate(
+            name="serve-replica",
+            spec=core.ClaimSpec(
+                requests=[core.DeviceRequest(
+                    name="chips", device_class="tpu.google.com",
+                    count=chips_per_replica)],
+                topology_scope="cluster")))
+    wl_obj = plane.store.try_get("Workload", "serve")
+    if wl_obj is None:
+        plane.submit(Workload(claim_template="serve-replica", role="serve",
+                              replicas=slots),
+                     name="serve")
+    elif wl_obj.spec.replicas != slots:
+        # resize of a recovered replica set is a spec edit, as ever
+        plane.edit("Workload", "serve",
+                   lambda w: setattr(w, "replicas", slots))
+    wl = plane.wait_for("Workload", "serve")
+    return plane, wl
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
@@ -35,10 +105,38 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                          "slot catches up (1 = token-by-token)")
     ap.add_argument("--max-queue", type=int, default=8,
                     help="per-replica router queue bound (backpressure)")
+    ap.add_argument("--claim-chips", type=int, default=0,
+                    help="chips per replica slot; >0 provisions the "
+                         "replica set through the declarative control plane")
+    ap.add_argument("--state-dir", default=None,
+                    help="control-plane state directory; recovered replica "
+                         "claims are adopted instead of re-stamped")
+    ap.add_argument("--reconcile-mode", default="threaded",
+                    choices=["threaded", "inline"],
+                    help="threaded: informer runtime converges replica "
+                         "sets while the engine decodes (default); "
+                         "inline: blocking reference arm")
+    ap.add_argument("--node-plane", action="store_true",
+                    help="run per-node agents; replica claims are "
+                         "scheduler-placed and survive node death")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' runs the "
                          "plain PyTorch path)")
     args = ap.parse_args(argv)
+
+    knd = None
+    plane = None
+    if args.claim_chips > 0:
+        plane, wl = provision_replicas(args.slots, args.claim_chips,
+                                       state_dir=args.state_dir,
+                                       reconcile_mode=args.reconcile_mode,
+                                       node_plane=args.node_plane)
+        lat = wl.status.outputs["phase_latency_s"]
+        claims = wl.status.outputs["claims"]
+        print(f"[knd] serve replica set Ready: {len(claims)} claims "
+              f"({args.claim_chips} chips each) in {lat['total'] * 1e3:.1f}ms")
+        knd = {"replica_claims": claims,
+               "submit_to_ready_ms": round(lat["total"] * 1e3, 2)}
 
     import numpy as np
 
@@ -55,7 +153,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
 
     slo = SloTracker()
     router = Router(slo, max_queue_per_replica=args.max_queue)
-    replica_names = [f"replica-{i}" for i in range(args.replicas)]
+    replica_names = (knd["replica_claims"][:args.replicas] if knd else
+                     [f"replica-{i}" for i in range(args.replicas)])
     for i, name in enumerate(replica_names):
         router.add_replica(name, ServeEngine(
             cfg, params, batch_slots=args.slots, max_len=args.max_len,
@@ -93,6 +192,20 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         "dispatch": router.dispatched,
         "sample": done[0].generated[:8] if done else [],
     }
+    if knd is not None:
+        out["knd"] = knd
+    if plane is not None:
+        # the serve plane's real latencies become the workload's SLO
+        # status — the surface canary verdicts are judged against
+        slo.publish(plane, "serve")
+    if plane is not None and plane.informer is not None:
+        stats = plane.informer.stop()       # informers ran under the engine
+        out["knd"]["informer"] = {"reconciled": stats.reconciled,
+                                  "rounds": stats.informer_rounds}
+    if plane is not None and plane.registry.node_plane is not None:
+        plane.registry.node_plane.stop()
+    if plane is not None and plane.journal is not None:
+        plane.journal.close()   # a later run in this process recovers it
     print(json.dumps(out, indent=1))
     return out
 

@@ -166,13 +166,17 @@ def _attend_dense(cfg: ModelConfig, q, k, v, q_pos, k_pos) -> torch.Tensor:
     qg = q.reshape(B, Sq, K, G, hd)
     qg = constrain(qg, "batch", "seq", "act_kv", None, None)
     scale = 1.0 / math.sqrt(hd)
-    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k).float() * scale
+    # both products flatten (batch, kv head) and (group, query): under a
+    # mesh the kv heads and the query's sequence are gathered first, as
+    # _rows gathers the sequence (DTensor flattens only a leading sharded dim)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", whole_dims(qg, 1, 2),
+                          whole_dims(k, 2)).float() * scale
     scores = constrain(scores, "batch", "act_kv", None, "seq", None)
     mask = replicated_like(_mask(q_pos, k_pos, cfg.sliding_window), scores)
     scores = torch.where(mask[None, None, None], scores, _neg_inf(scores))
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     w = constrain(w, "batch", "act_kv", None, "seq", None)
-    out = torch.einsum("bkgqs,bskh->bqkgh", w, v)
+    out = torch.einsum("bkgqs,bskh->bqkgh", whole_dims(w, 1, 3), whole_dims(v, 2))
     return out.reshape(B, Sq, H, hd)
 
 

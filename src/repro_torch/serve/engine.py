@@ -36,6 +36,7 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from ..api.chaos import sync_point
 from ..device import resolve_device
 from ..models import lm
 from ..models.config import ModelConfig
@@ -212,6 +213,7 @@ class ServeEngine:
             self._fed[i] = 0
             head.state = STATUS_PREFILL
             self.admitted += 1
+            sync_point("serve.admit", slot=i, uid=head.uid)
 
     def has_work(self) -> bool:
         return bool(self.pending) or any(r is not None for r in self.active)
@@ -222,6 +224,7 @@ class ServeEngine:
     # -- one tick ----------------------------------------------------------
     def step(self) -> bool:
         """One engine tick; returns False when there was nothing to do."""
+        sync_point("serve.step", step=self.steps)
         self._admit()
         slots_live = [i for i, r in enumerate(self.active) if r is not None]
         if not slots_live:
@@ -298,6 +301,7 @@ class ServeEngine:
                 self.completed.append(r)
                 self.kv.release(i)
                 self.active[i] = None
+                sync_point("serve.complete", slot=i, uid=r.uid)
         return True
 
     def _sample(self, logits: np.ndarray, r: Request) -> int:

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional
 
+from ..api.chaos import sync_point
 from .engine import Request, ServeEngine, ServeError
 from .slo import SloTracker
 
@@ -83,6 +84,7 @@ class Router:
                 f"max_queue_per_replica={self.max_queue}")
         name = min(candidates,
                    key=lambda n: (self._replicas[n].load(), n))
+        sync_point("router.dispatch", replica=name)
         self.dispatched[name] += 1
         return self._replicas[name].submit(prompt, max_new_tokens,
                                            temperature)

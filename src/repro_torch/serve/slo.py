@@ -3,7 +3,9 @@
 Requests are observed per *arm* ("baseline" or "canary", the rollout
 revision a replica serves); aggregates are exact and order-insensitive
 (nearest-rank percentiles over the retained window), so a pinned
-request trace always produces the same snapshot.
+request trace always produces the same snapshot. :meth:`SloTracker.publish`
+writes the snapshot into a workload's ``outputs["slo"]`` — the surface
+the rollout plane's CanaryController judges against its SLO ceilings.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 from typing import TYPE_CHECKING, Dict, List, Optional
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
+    from ..api.controllers import ControlPlane
     from .engine import Request
 
 __all__ = ["SloTracker"]
@@ -84,3 +87,10 @@ class SloTracker:
 
     def snapshot(self) -> Dict[str, Dict[str, float]]:
         return {arm: self.arm_snapshot(arm) for arm in sorted(self._totals)}
+
+    def publish(self, plane: "ControlPlane", workload: str) -> None:
+        """Write the current snapshot into the workload's status outputs."""
+        snap = self.snapshot()
+        plane.store.update_status(
+            "Workload", workload,
+            lambda st: st.outputs.__setitem__("slo", snap))

@@ -384,23 +384,23 @@ def test_runtime_refuses_without_a_process_group():
     assert not dist.is_initialized()
     spec = plan_of(SIDES["torch"], "1x1", "aligned", 0).attachment()
     with pytest.raises(RuntimeError, match="no process group"):
-        tcore.MeshRuntime().execute(spec, device_type="cpu")
+        tcore.MeshRuntime("cpu").execute(spec)
 
 
 def test_runtime_builds_the_mesh_of_its_world(gloo_world_1):
-    runtime = tcore.MeshRuntime()
+    runtime = tcore.MeshRuntime("cpu")
     big = plan_of(SIDES["torch"], "4x2", "aligned", 0).attachment()
     with pytest.raises(RuntimeError, match="8 devices, the process group has 1"):
-        runtime.execute(big, device_type="cpu")
+        runtime.execute(big)
     spec = plan_of(SIDES["torch"], "1x1", "aligned", 0).attachment()
-    mesh = runtime.execute(spec, device_type="cpu")
+    mesh = runtime.execute(spec)
     assert mesh.device_type == "cpu" and mesh.mesh_dim_names == ("data", "model")
     assert mesh.mesh.tolist() == [[0]]
     assert runtime.executed == (spec,)
     bad = tcore.AttachmentSpec(("data",), (2,), [tcore.DeviceBinding("a", (0,)),
                                                  tcore.DeviceBinding("b", (0,))])
     with pytest.raises(ValueError, match="duplicate"):
-        runtime.execute(bad, device_type="cpu")
+        runtime.execute(bad)
 
 
 def test_knd_workflow_end_to_end(gloo_world_1):
@@ -420,5 +420,5 @@ def test_knd_workflow_end_to_end(gloo_world_1):
     specs = [h.value for h in hooks if h.driver == "dranet.repro.dev"]
     assert len(specs) == 1 and specs[0].axis_shape == (1, 1)
     assert claim.allocation.device_statuses
-    mesh = tcore.MeshRuntime().execute(specs[0], device_type="cpu")
+    mesh = tcore.MeshRuntime("cpu").execute(specs[0])
     assert mesh.mesh_dim_names == ("data", "model")

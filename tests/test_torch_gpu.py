@@ -531,3 +531,107 @@ def test_ssd_chunk_on_a_dtensor_raises(nccl_mesh):
     with pytest.raises(NotImplementedError, match="later slice"):
         ssd_chunk(*ins)
     assert launch_counts()["ssd_chunk"] == before
+
+
+# ---------------------------------------------------------------------------
+# The declarative plane on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_informer_builds_the_mesh_on_the_card(cuda, tmp_path):
+    """Under a threaded ControlPlaneRuntime the AttachmentController's
+    ``execute(spec)`` runs on an informer worker thread: the mesh is a
+    cuda ``DeviceMesh`` over the NCCL group, built off the main thread,
+    and the main thread made no collective while it waited."""
+    import threading
+    import torch.distributed as dist
+    from repro_torch import core
+    from repro_torch.api import ControlPlane, ControlPlaneRuntime, Workload
+    from repro_torch.node import NodePlane
+    from repro_torch.topology.tpu import TpuPodSpec, build_tpu_cluster
+
+    threads = []
+
+    class Recording(core.MeshRuntime):
+        def execute(self, spec):
+            threads.append(threading.current_thread())
+            return super().execute(spec)
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'rdzv'}",
+                            rank=0, world_size=1)
+    try:
+        cluster = build_tpu_cluster(1, TpuPodSpec(x=1, y=1))
+        reg = core.DriverRegistry()
+        reg.add(core.TpuDriver(cluster)).add(core.IciDriver(cluster))
+        plane = ControlPlane.open(str(tmp_path / "state"), reg, cluster,
+                                  runtime=Recording("cuda"))
+        nodes = NodePlane(plane).start()
+        rt = ControlPlaneRuntime(plane).start()
+        try:
+            plane.submit(plane.planner.make_claim("train", 1))
+            plane.submit(Workload(claim="train", axes=[core.AxisSpec("data", 1, "y"),
+                                                       core.AxisSpec("model", 1, "x")]),
+                         name="train-job")
+            wl = plane.wait_for("Workload", "train-job")
+        finally:
+            rt.stop(timeout=20)
+            nodes.stop()
+        mesh = wl.status.outputs["mesh"]
+        assert mesh.device_type == "cuda" and mesh.mesh.tolist() == [[0]]
+        assert len(threads) == 1 and threads[0] is not threading.main_thread()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_sharded_checkpoint_round_trips_on_the_card(nccl_mesh, tmp_path):
+    """Smoke h2o-danube-1.8b's train state as DTensors on the card: saved
+    (gathered, rank 0 writes), restored as DTensors on the same mesh and
+    placements and into the unsharded state, both bit-equal."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.ckpt.checkpoint import CheckpointManager, restore_checkpoint
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.parallel.sharding import ShardingRules, use_rules
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.schedule import constant_schedule
+    from repro_torch.train.train_step import init_train_state
+    from repro_torch.tree import tree_flatten_with_paths
+    cfg = smoke_config("h2o-danube-1.8b")
+    opt = AdamW(constant_schedule(1e-3))
+    with use_rules(ShardingRules(mesh=nccl_mesh)):
+        state = init_train_state(cfg, opt, 0, "cuda")
+        like = init_train_state(cfg, opt, 1, "cuda")
+    want = {k: (v.full_tensor() if isinstance(v, DTensor) else v).clone()
+            for k, v in tree_flatten_with_paths(state)}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, state)
+    back, step = mgr.restore_latest(like)
+    plain, _ = restore_checkpoint(str(tmp_path), init_train_state(cfg, opt, 1, "cuda"))
+    assert step == 1
+    n = 0
+    for (key, l), (_, got), (_, p) in zip(tree_flatten_with_paths(like),
+                                         tree_flatten_with_paths(back),
+                                         tree_flatten_with_paths(plain)):
+        if isinstance(l, DTensor):
+            n += 1
+            assert isinstance(got, DTensor) and got.device_mesh is nccl_mesh
+            assert got.placements == l.placements
+            got = got.full_tensor()
+        assert got.device.type == "cuda" and torch.equal(got, want[key]), key
+        assert not isinstance(p, DTensor) and torch.equal(p, want[key]), key
+    assert n > 0
+
+
+@pytest.mark.gpu
+def test_train_launcher_mesh_on_the_card(cuda, tmp_path):
+    """The train launcher on the KND-planned 1 x 1 mesh over NCCL: the
+    same losses and grad norms as without the mesh, bit for bit."""
+    from repro_torch.launch import train
+    args = ["--smoke", "--steps", "2", "--batch", "4", "--seq", "32"]
+    meshed = train.main(args + ["--mesh", "1x1", "--devices", "1",
+                                "--state-dir", str(tmp_path / "state"), "--node-plane"])
+    plain = train.main(args)
+    assert meshed["knd"]["mesh"] == {"data": 1, "model": 1}
+    assert meshed["losses"] == plain["losses"]
+    assert meshed["grad_norms"] == plain["grad_norms"]

@@ -21,7 +21,11 @@
   yi-34b, 4/2 heads, d_model 64, d_ff 128, AdamW at 1e-3, remat dots,
   8 x 32 tokens, 5 steps) in f32, each step's loss within 1e-4
   relative of the port's unsharded run and of the JAX package's, from
-  the same weights through ``repro_torch.convert``.
+  the same weights through ``repro_torch.convert``; then a checkpoint of
+  that sharded state (every rank gathers each leaf, rank 0 writes the
+  JAX package's format) restored on every rank bit-equal, as DTensors on
+  the same mesh and placements and into the unsharded tree, and read
+  bit-equal by the JAX package's ``restore_checkpoint``.
 """
 
 import json
@@ -39,6 +43,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.ckpt.checkpoint import restore_checkpoint as jax_restore_checkpoint  # noqa: E402
 from repro.configs.registry import ARCHS as JAX_ARCHS  # noqa: E402
 from repro.configs.registry import get_config as jax_get_config  # noqa: E402
 from repro.configs.registry import smoke_config as jax_smoke_config  # noqa: E402
@@ -342,7 +347,7 @@ planner = MeshPlanner(cluster)
 claim = planner.make_claim("spmd", 4)
 StructuredAllocator(reg.pool, reg.classes).allocate(claim)
 plan = planner.plan([AxisSpec("data", 2, "y"), AxisSpec("model", 2, "x")], "aligned", claim)
-mesh = MeshRuntime().execute(plan.attachment(), device_type="cpu")
+mesh = MeshRuntime("cpu").execute(plan.attachment())
 res["mesh"] = [list(mesh.mesh_dim_names), mesh.mesh.tolist()]
 
 cfg = smoke_config("yi-34b").replace(num_heads=4, num_kv_heads=2, d_model=64, d_ff=128,
@@ -378,6 +383,35 @@ res["losses_sharded"], st = run(ShardingRules(mesh=mesh))
 res["all_dtensor"] = all(isinstance(p, DTensor) and p.device_mesh is mesh
                          for p in tree_leaves(st["params"]) + tree_leaves(st["opt_state"]))
 res["losses_plain"], _ = run(None)
+
+# -- the sharded state's checkpoint: gathered on every rank, rank 0 writes ------
+from repro_torch.ckpt.checkpoint import CheckpointManager, restore_checkpoint
+from repro_torch.tree import tree_flatten_with_paths
+ck = f"{out_dir}/ckpt"
+mgr = CheckpointManager(ck)
+mgr.save(5, st)
+mgr.wait()                       # a barrier: rank 0 has committed
+full = [(k, v.full_tensor() if isinstance(v, DTensor) else v)
+        for k, v in tree_flatten_with_paths(st)]
+if rank == 0:
+    np.savez(f"{out_dir}/ckpt_state.npz", **{k: v.numpy() for k, v in full})
+with use_rules(ShardingRules(mesh=mesh)):
+    like = shard_train_state(cfg, opt, fresh_state())
+sharded, step_s = restore_checkpoint(ck, like)
+plain, step_p = restore_checkpoint(ck, fresh_state())
+checks = []
+for (k, want), (_, l), (_, got), (_, p) in zip(full, tree_flatten_with_paths(like),
+                                               tree_flatten_with_paths(sharded),
+                                               tree_flatten_with_paths(plain)):
+    dt = isinstance(l, DTensor)
+    checks.append({
+        "key": k, "dtensor": dt,
+        "same_layout": (isinstance(got, DTensor) and got.device_mesh is mesh
+                        and got.placements == l.placements) if dt
+                       else not isinstance(got, DTensor),
+        "bit_equal": torch.equal(got.full_tensor() if dt else got, want),
+        "plain_bit_equal": not isinstance(p, DTensor) and torch.equal(p, want)})
+res["ckpt"] = {"dir": ck, "steps": [step_s, step_p], "leaves": checks}
 with open(f"{out_dir}/rank{rank}.json", "w") as f:
     json.dump(res, f)
 dist.destroy_process_group()
@@ -475,6 +509,36 @@ def test_kernel_wrappers_dtensor_paths(four_ranks):
         assert res["rmsnorm_out_placements"] == ["S(0)", "R"]
         for name, errs in res["wrapper_errs"].items():
             assert max(errs) <= 1e-6, (name, errs)
+
+
+def test_sharded_checkpoint_restores_bit_equal(four_ranks):
+    """A checkpoint of the sharded state (every rank gathers, rank 0
+    writes) restores on every rank bit-equal, each leaf a DTensor on the
+    same mesh with the same placements, and bit-equal into the unsharded
+    tree too; the JAX package's ``restore_checkpoint`` reads it bit-equal."""
+    ranks, _ = four_ranks
+    for res in ranks:
+        ck = res["ckpt"]
+        assert ck["steps"] == [5, 5]
+        assert sum(c["dtensor"] for c in ck["leaves"]) > 0
+        for c in ck["leaves"]:
+            assert c["same_layout"] and c["bit_equal"] and c["plain_bit_equal"], c
+    ck_dir = ranks[0]["ckpt"]["dir"]
+    saved = np.load(os.path.join(os.path.dirname(ck_dir), "ckpt_state.npz"))
+    like = {}
+    for key in saved.files:
+        node = like
+        *path, leaf = key.split("/")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.zeros(())
+    restored, step = jax_restore_checkpoint(ck_dir, like)
+    assert step == 5
+    got = dict(jax_paths(jax.tree.map(np.asarray, restored)))
+    assert sorted(got) == sorted(saved.files)
+    for key in saved.files:
+        assert got[key].dtype == saved[key].dtype
+        assert np.array_equal(got[key], saved[key]), key
 
 
 def test_sharded_training_matches_unsharded_and_jax(four_ranks):

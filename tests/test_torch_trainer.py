@@ -251,7 +251,8 @@ def test_launcher_resumes_and_reports_as_jax(tmp_path, capsys, monkeypatch):
     theirs = [last_json(o) for o in jax_out]
 
     for mine, ref in zip((first, second), theirs):
-        assert set(mine) == set(ref) | {"device"}
+        assert set(mine) == set(ref) | {"device", "losses", "grad_norms"}
+        assert mine["losses"][0] == mine["loss_first"] and len(mine["grad_norms"]) == 3
         assert mine["device"] == "cpu" and mine["arch"] == ref["arch"]
         assert set(mine["result"]) == set(ref["result"])
         assert mine["result"]["completed"] == ref["result"]["completed"]

@@ -14,9 +14,11 @@ internvl2-1b at full size, trains h2o-danube-1.8b at full size through
 the train launcher, plans a mesh through the KND core and trains
 h2o-danube-1.8b at full size on it, serves and trains h2o-danube-1.8b at
 full size through the launchers' control-plane flags (a reconciled
-replica set; a mesh the AttachmentController built) and round-trips a
-full-width checkpoint of the sharded state through the train launcher,
-with random weights from a seed, in phases (each logs its seconds):
+replica set; a mesh the AttachmentController built, both with
+``--obs-dir``), measures what the observability and control planes
+cost h2o-danube-1.8b's host-bound serving, and round-trips a full-width
+checkpoint of the sharded state through the train launcher, with random
+weights from a seed, in phases (each logs its seconds):
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc for the three CUDA libraries (RMSNorm, flash attention,
@@ -36,6 +38,17 @@ with random weights from a seed, in phases (each logs its seconds):
      request's greedy tokens alone vs beside staggered others;
   6. danube serving in bf16 through the Router: 8 requests, 4 slots;
      then a torch.profiler breakdown of its serving ticks;
+  6b. plane cost: the same weights and load (8 requests of 64-512
+     prompt tokens, 32 new, 4 slots, chunk 16) through the Router and
+     ServeEngine under four arms, PLANE_COST_ROUNDS rounds rotating their
+     order: A a disabled metrics registry and no tracer; B the live
+     default registry and an installed tracer (what ``--obs-dir`` pays);
+     C B and a 1-chip-per-slot replica set (``provision_replicas``) under
+     the threaded informer, the tracer on its store; D C reconciled
+     inline. Every run's greedy tokens equal; per arm the median, min and
+     max of tokens/s, ms per tick and SloTracker's p50/p95 TTFT and TPOT,
+     their ratios to A, and (first round) the device idle share of
+     PROFILE_TICKS decode ticks;
   7. grok in f32 at 1 layer: prefill with the flash kernel vs the dense
      path and engine first-token logits vs prefill, on a prompt where
      neither drops an expert choice (both drop counts checked), staggered
@@ -91,12 +104,20 @@ with random weights from a seed, in phases (each logs its seconds):
      --node-plane`` (threaded informer): the workload Ready, one claim
      per slot, the replica named after it, the SLO published into
      ``outputs["slo"]``, every request's greedy tokens equal to the plain
-     run's; a rerun with 3 slots adopts both claims byte-identical and
-     stamps one (state under build/, removed after);
+     run's; that run also takes ``--obs-dir`` (under a fresh metrics
+     registry): metrics.json counts every request admitted and completed,
+     the engine's ticks and one TTFT per request, and the tracer's spans
+     (the port's ``validate_spans``) hold one gap-free Request tree per
+     request, each claim's lifecycle up to Prepared and the workload's up
+     to Ready; a rerun with 3 slots adopts both claims byte-identical and
+     stamps one (state and artifacts under build/, removed after);
   21. knd train: danube at full size through the train launcher, 2
      steps of 8 x 64, the flash kernel, without and with ``--mesh 1x1
      --devices 1 --state-dir --node-plane``: the ``[knd] MeshPlan``
-     line, losses and grad norms within 1e-4; a rerun adopts the claim
+     line, losses and grad norms within 1e-4; the meshed run's
+     ``--obs-dir`` artifacts (the ``[obs] artifacts`` line, well-formed
+     spans, the claim's lifecycle up to Prepared and the workload's up to
+     Ready, a reconcile latency for both kinds); a rerun adopts the claim
      with its allocation unchanged;
   16. checkpoints of the sharded state: danube at full width and
      CKPT_LAYERS layers through the train launcher on the planned 1 x 1
@@ -107,8 +128,9 @@ with random weights from a seed, in phases (each logs its seconds):
      saved, the resumed losses equal within 1e-6, ``store.json`` loading
      into a store with the saved fingerprint; logs the codec, bytes, the
      gather's, snapshot's, write's and both restores' seconds;
-  11. the kernels line: launches on the eleven paths, in this order
-     (phases 5-6, the dense path; 7-7c, the moe path; 10-10b, the hybrid
+  11. the kernels line: launches on the twelve paths, in this order
+     (phases 5-6, the dense path; 6b, plane cost; 7-7c, the moe path;
+     10-10b, the hybrid
      path; 12-12b, vision; 13-13b, audio; 14-14b, train; 15, trainer;
      8-9, the ssm path; 17-19, mesh; 20, knd serve; 21 and 16, knd
      train), each path's counts set to 0 just before it (the mesh path:
@@ -164,6 +186,7 @@ CKPT_EVERY, CKPT_FIT = 3, 5        # one save, at step 3, in a fit of 5 steps
 CKPT_DIR = os.path.join(ROOT, "build", "chip_smoke_ckpt")
 KND_SERVE_DIR = os.path.join(ROOT, "build", "chip_smoke_knd_serve")   # state dirs
 KND_TRAIN_DIR = os.path.join(ROOT, "build", "chip_smoke_knd_train")
+KND_OBS_DIR = os.path.join(ROOT, "build", "chip_smoke_obs")   # --obs-dir artifacts
 KND_REQUESTS = 4                   # the declarative serve path's requests
 KND_STEPS = 2                      # the declarative train path's steps per run
 MESH_STEPS = 3                     # danube's steps on the planned mesh, and without
@@ -172,6 +195,8 @@ FRONTEND_REQUESTS = 4              # the frontends' serving requests
 # for the script's time (a profiled mamba2 tick records ~30 k kernels),
 # and enough, as device time per tick moves by under 2 % between runs
 PROFILE_TICKS = 4
+PLANE_COST_ARMS = "ABCD"           # [plane cost]: the arms, rotated one place per round
+PLANE_COST_ROUNDS = 3
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
@@ -1323,6 +1348,68 @@ def phase_checkpoint():
             "rmsnorm": 2 * CKPT_FIT * (4 * CKPT_LAYERS + 1)}
 
 
+@contextlib.contextmanager
+def obs_capture():
+    """A fresh metrics registry for one launcher run, and the tracers its
+    ``--obs-dir`` installs (recorded through ``repro_torch.obs.install_tracer``,
+    which the launchers import when they run)."""
+    import repro_torch.obs as obs
+    install, tracers = obs.install_tracer, []
+
+    def recording(tracer):
+        if tracer is not None:
+            tracers.append(tracer)
+        install(tracer)
+
+    obs.install_tracer = recording
+    try:
+        with obs.installed(obs.MetricsRegistry()):
+            yield tracers
+    finally:
+        obs.install_tracer = install
+
+
+def metric(metrics, name, **labels):
+    """A counter's or gauge's value, or a histogram's count, from a
+    ``metrics.json`` (None when the instrument has no such sample)."""
+    for sample in metrics.get(name, {}).get("samples", []):
+        if sample["labels"] == labels:
+            return sample["value"] if "value" in sample else sample["count"]
+    return None
+
+
+def obs_artifacts(out_dir, tracers, what):
+    """The artifacts of one ``--obs-dir`` run: all three files written,
+    the tracer's span trees well-formed (the port's ``validate_spans``:
+    monotonic, nested, gap-free) and each of them in ``spans.json``.
+    Returns ``metrics.json`` and the trees, {root name: child names}."""
+    from repro_torch.obs import validate_spans
+    paths = {n: os.path.join(out_dir, n) for n in ("metrics.prom", "metrics.json", "spans.json")}
+    check(all(os.path.isfile(p) for p in paths.values()), f"{what}: artifacts {paths}")
+    check(len(tracers) == 1, f"{what}: {len(tracers)} tracers installed")
+    spans = tracers[0].spans()
+    problems = validate_spans(spans)
+    check(problems == [], f"{what}: malformed spans {problems[:5]}")
+    with open(paths["spans.json"]) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e["ph"] == "X"]
+    check(len(events) == sum(1 + len(r.children) for r in spans),
+          f"{what}: spans.json holds {len(events)} spans")
+    with open(paths["metrics.json"]) as f:
+        metrics = json.load(f)
+    return metrics, {r.name: [c.name for c in r.children] for r in spans}
+
+
+def check_plane_trees(trees, claims, workload, what):
+    """Every claim's lifecycle reaches Prepared (a claim has no Ready
+    condition) and the workload's reaches Ready."""
+    for c in claims:
+        phases = trees.get(f"ResourceClaim/{c}#cycle0", [])
+        check("Allocated" in phases and phases[-1:] == ["Prepared"],
+              f"{what}: claim {c} spans {phases}")
+    phases = trees.get(f"Workload/{workload}#cycle0", [])
+    check(phases[-1:] == ["Ready"], f"{what}: workload {workload} spans {phases}")
+
+
 def served_requests(argv):
     """The serve launcher's report, its requests in uid order and its
     engines' ticks (read through ``Router.run``)."""
@@ -1354,7 +1441,11 @@ def phase_knd_serve():
     the workload Ready, one claim per slot, the router's replica named
     after the stamped claim, ``outputs["slo"]`` holding the published
     TTFT and TPOT, the informer reconciling at least once, and every
-    request's greedy tokens equal to the plain run's. Then ``--slots 3``
+    request's greedy tokens equal to the plain run's. The replica-set
+    run also takes ``--obs-dir``: its ``metrics.json`` counts every
+    request admitted and completed, the engine's ticks and one TTFT per
+    request, and its tracer holds one gap-free Request tree per request
+    and the claims' and workload's lifecycles. Then ``--slots 3``
     on the same state directory adopts both recovered claims with
     byte-identical allocations (``allocation_records``) and stamps
     exactly one. Returns the launches: 2L+1 RMSNorm per engine tick of
@@ -1363,14 +1454,29 @@ def phase_knd_serve():
     from repro_torch.api import allocation_records, recover_store
     from repro_torch.configs.registry import get_config
     cfg = get_config(ARCH)
-    shutil.rmtree(KND_SERVE_DIR, ignore_errors=True)
+    for d in (KND_SERVE_DIR, KND_OBS_DIR):
+        shutil.rmtree(d, ignore_errors=True)
     base = ["--arch", ARCH, "--requests", str(KND_REQUESTS), "--new-tokens", "8",
             "--device", DEVICE]
     knd = ["--claim-chips", "1", "--state-dir", KND_SERVE_DIR, "--node-plane"]
     plain, _, plain_reqs, ticks_plain = served_requests(base + ["--slots", "2"])
     free_cuda()
-    out, text, reqs, ticks = served_requests(base + ["--slots", "2"] + knd)
+    with obs_capture() as tracers:
+        out, text, reqs, ticks = served_requests(base + ["--slots", "2"] + knd
+                                                 + ["--obs-dir", KND_OBS_DIR])
     free_cuda()
+    metrics, trees = obs_artifacts(KND_OBS_DIR, tracers, "knd serve --obs-dir")
+    counted = {k: metric(metrics, f"plane_torch_serve_{k}") for k in
+               ("admitted_total", "completed_total", "steps_total")}
+    counted["ttft"] = metric(metrics, "plane_torch_serve_ttft_seconds", arm="baseline")
+    check(counted == {"admitted_total": KND_REQUESTS, "completed_total": KND_REQUESTS,
+                      "steps_total": ticks, "ttft": KND_REQUESTS}
+          and sorted(out["obs"]) == ["metrics.json", "metrics.prom", "spans.json"],
+          f"knd serve --obs-dir: {counted}, {ticks} ticks, {out.get('obs')}")
+    requests = {k: v for k, v in trees.items() if k.startswith("Request/")}
+    check(len(requests) == KND_REQUESTS
+          and all(v == ["queued", "prefill", "decode"] for v in requests.values()),
+          f"knd serve --obs-dir: request spans {requests}")
     claims = out["knd"]["replica_claims"]
     store, _ = recover_store(KND_SERVE_DIR)
     wl = store.get("Workload", "serve")
@@ -1395,7 +1501,9 @@ def phase_knd_serve():
           and len(again["knd"]["replica_claims"]) == 3
           and {k: after[k] for k in before} == before and len(set(after) - set(before)) == 1,
           f"knd serve resize: {again['knd']}, records {sorted(after)}")
+    check_plane_trees(trees, claims, "serve", "knd serve --obs-dir")
     report = {"arch": ARCH, "requests": KND_REQUESTS, "new_tokens": 8,
+              "obs": {"metrics": counted, "span_trees": len(trees)},
               "replica_claims": claims, "submit_to_ready_ms": out["knd"]["submit_to_ready_ms"],
               "informer": out["knd"]["informer"], "slo": wl.status.outputs["slo"],
               "resized_claims": again["knd"]["replica_claims"],
@@ -1403,7 +1511,8 @@ def phase_knd_serve():
               "resized_informer": again["knd"]["informer"],
               "ticks": [ticks_plain, ticks, ticks_again], "sample": out["sample"]}
     log(f"[knd serve] {json.dumps(report)}")
-    shutil.rmtree(KND_SERVE_DIR, ignore_errors=True)
+    for d in (KND_SERVE_DIR, KND_OBS_DIR):
+        shutil.rmtree(d, ignore_errors=True)
     return {"flash_attention": 0, "ssd_chunk": 0,
             "rmsnorm": (ticks_plain + ticks + ticks_again) * (2 * cfg.num_layers + 1)}
 
@@ -1416,22 +1525,37 @@ def phase_knd_train():
     threads, the ``DeviceMesh`` built on one of them by the
     AttachmentController): the ``[knd] MeshPlan[aligned]`` line, each
     step's loss and grad norm within 1e-4 relative of the run without a
-    mesh. A third run on the same state directory adopts the claim with
-    its allocation unchanged. Logs ms per step (the launcher's steps/s).
+    mesh. The meshed run also takes ``--obs-dir``: its three artifacts,
+    its tracer's spans well-formed, the claim's lifecycle reaching
+    Prepared and the workload's Ready, and a reconcile latency recorded
+    for both kinds. A third run on the same state directory adopts the
+    claim with its allocation unchanged. Logs ms per step (the launcher's
+    steps/s).
     Returns the launches: per step 2L flash and 4L+1 RMSNorm, three runs."""
     import shutil
     from repro_torch.configs.registry import get_config
     from repro_torch.launch import train as launch_train
     cfg = get_config(ARCH)
     L = cfg.num_layers
-    shutil.rmtree(KND_TRAIN_DIR, ignore_errors=True)
+    for d in (KND_TRAIN_DIR, KND_OBS_DIR):
+        shutil.rmtree(d, ignore_errors=True)
     base = ["--arch", ARCH, "--steps", str(KND_STEPS), "--batch", "8", "--seq", "64",
             "--device", DEVICE]
     knd = ["--mesh", "1x1", "--devices", "1", "--state-dir", KND_TRAIN_DIR, "--node-plane"]
     plain = launch_train.main(base)
     free_cuda()
-    meshed, text = run_launcher(launch_train.main, base + knd)
+    with obs_capture() as tracers:
+        meshed, text = run_launcher(launch_train.main,
+                                    base + knd + ["--obs-dir", KND_OBS_DIR])
     free_cuda()
+    metrics, trees = obs_artifacts(KND_OBS_DIR, tracers, "knd train --obs-dir")
+    check(f"[obs] artifacts: {os.path.join(KND_OBS_DIR, 'metrics.json')}" in text,
+          "knd train --obs-dir: no [obs] line")
+    check_plane_trees(trees, ["train"], "train-job", "knd train --obs-dir")
+    reconciles = {k: metric(metrics, "plane_torch_runtime_reconcile_seconds", kind=k)
+                  for k in ("ResourceClaim", "Workload")}
+    check(all(n and n > 0 for n in reconciles.values()),
+          f"knd train --obs-dir: reconcile latencies {reconciles}")
     rels = {k: rel_diffs(meshed[k], plain[k]) for k in ("losses", "grad_norms")}
     check("[knd] MeshPlan[aligned] data=1" in text and meshed["knd"]["mesh"]
           == {"data": 1, "model": 1}, f"knd train: {meshed.get('knd')}")
@@ -1449,12 +1573,14 @@ def phase_knd_train():
                                      again["knd"]["submit_to_ready_ms"]],
               "informer": [meshed["knd"]["informer"], again["knd"]["informer"]],
               "adopted": again["knd"]["adopted"],
+              "obs": {"reconciles_timed": reconciles, "span_trees": len(trees)},
               "losses": meshed["losses"], "grad_norms": meshed["grad_norms"],
               "rel_diff": rels, "bit_equal": rels == {k: [0.0] * KND_STEPS for k in rels},
               "ms_per_step_incl_first": {r: 1e3 / o["steps_per_s"] for r, o in
                                          (("plain", plain), ("mesh", meshed), ("rerun", again))}}
     log(f"[knd train] {json.dumps(report)}")
-    shutil.rmtree(KND_TRAIN_DIR, ignore_errors=True)
+    for d in (KND_TRAIN_DIR, KND_OBS_DIR):
+        shutil.rmtree(d, ignore_errors=True)
     return {"flash_attention": 3 * KND_STEPS * 2 * L, "ssd_chunk": 0,
             "rmsnorm": 3 * KND_STEPS * (4 * L + 1)}
 
@@ -1806,13 +1932,34 @@ def phase_serve_bf16(rng, arch, layers=None, requests=8):
     return cfg, params, prefill, stats
 
 
+def profile_ticks(step, n=PROFILE_TICKS):
+    """``n`` serving ticks on the host clock, then ``n`` more under
+    torch.profiler -> (wall ms per tick, device ms per tick or None when
+    the profiler saw no device activity, the device idle share or None,
+    the profile's device events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0) / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    evs = kernel_events(prof)
+    busy = sum(us for *_, us in evs) / n / 1e3 if evs else None
+    return wall, busy, None if busy is None else 1 - busy / wall, evs
+
+
 def phase_profile(cfg, params, rng):
     """Where a serving tick's time goes, with 4 slots all prefilling
     16-token chunks and then all decoding one token: wall time per tick
     (unprofiled), device time per tick, the device's idle share and the
     top device activities (torch.profiler), for ``cfg``'s engine."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve.engine import ServeEngine
     eng = ServeEngine(cfg, params, batch_slots=4, max_len=1024, prefill_chunk=16,
                       device=DEVICE, seed=SEED)
@@ -1827,23 +1974,11 @@ def phase_profile(cfg, params, rng):
                 while any(r is not None and r.t_first_token is None
                           for r in eng.active):
                     eng.step()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(n):
-                eng.step()
-            torch.cuda.synchronize()
-            wall = 1e3 * (time.perf_counter() - t0) / n
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(n):
-                    eng.step()
-                torch.cuda.synchronize()
-            evs = kernel_events(prof)
-            busy = sum(us for *_, us in evs) / n / 1e3 if evs else None
+            wall, busy, idle, evs = profile_ticks(eng.step, n)
             top = sorted(evs, key=lambda e: -e[2])[:8]
             out[regime] = {
                 "wall_ms_per_tick": wall, "device_ms_per_tick": busy,
-                "device_idle_share": None if busy is None else 1 - busy / wall,
+                "device_idle_share": idle,
                 "device_ops_per_tick": sum(c for _, c, _ in evs) / n,
                 # norms_per_tick when the profiler kept every record
                 "rmsnorm_launches_per_tick": norms_per_tick(
@@ -1858,6 +1993,136 @@ def phase_profile(cfg, params, rng):
         check(o["rmsnorm_records_per_tick"] > 0,
               f"{cfg.name} {regime}: the profiler recorded no rmsnorm_kernel")
     log(f"[profile {cfg.name}] {json.dumps(out)}")
+
+
+@contextlib.contextmanager
+def plane_arm(arm):
+    """One arm of [plane cost] -> (the replica's name, the tracer or
+    None). A: a disabled registry and no tracer; B: the live default
+    registry and an installed tracer (what ``--obs-dir`` pays); C: B and a
+    1-chip-per-slot replica set provisioned under the threaded informer,
+    the tracer on the plane's store, the informer running while the engine
+    serves; D: C reconciled inline (the control without plane threads)."""
+    from repro_torch.launch.serve import provision_replicas
+    from repro_torch.obs import MetricsRegistry, Tracer, installed, installed_tracer
+    if arm == "A":
+        with installed(MetricsRegistry(enabled=False)):
+            yield "replica-0", None
+        return
+    with installed_tracer(Tracer()) as tracer:
+        if arm == "B":
+            yield "replica-0", tracer
+            return
+        plane, wl = provision_replicas(4, 1, tracer=tracer, reconcile_mode=(
+            "threaded" if arm == "C" else "inline"))
+        try:
+            check((plane.informer is not None) == (arm == "C")
+                  and len(wl.status.outputs["claims"]) == 4,
+                  f"plane cost {arm}: {wl.status.outputs.get('claims')}")
+            yield wl.status.outputs["claims"][0], tracer
+        finally:
+            if plane.informer is not None:
+                plane.informer.stop()
+            tracer.detach()
+
+
+def serve_arm(cfg, params, prompts, arm, profile):
+    """The serving phases' load through a Router and a ServeEngine under
+    ``arm`` (:func:`plane_arm`): tokens/s, ms per tick and SloTracker's
+    TTFT and TPOT; with ``profile``, then 4 more requests of 64 tokens, all
+    prefilled, and the device idle share of PROFILE_TICKS decode ticks
+    (:func:`profile_ticks`). Returns the stats, every request's greedy
+    tokens in uid order, and the engine ticks run."""
+    import torch
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.router import Router
+    from repro_torch.serve.slo import SloTracker
+    with plane_arm(arm) as (replica, tracer), torch.no_grad():
+        slo = SloTracker()
+        router = Router(slo, max_queue_per_replica=8)
+        eng = ServeEngine(cfg, params, batch_slots=4, max_len=1024, prefill_chunk=16,
+                          device=DEVICE, seed=SEED)
+        router.add_replica(replica, eng)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p in prompts:
+            router.submit(p, max_new_tokens=32)
+        done = router.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(len(done) == len(prompts) and all(r.done for r in done),
+              f"plane cost {arm}: not every request completed")
+        snap = slo.arm_snapshot("baseline")
+        gen = sum(len(r.generated) for r in done)
+        stats = {"tokens_per_s": gen / wall, "ms_per_tick": 1e3 * wall / eng.steps,
+                 "ticks": eng.steps, "wall_s": wall,
+                 **{k: snap[k] for k in ("p50_ttft_ms", "p95_ttft_ms",
+                                         "p50_tpot_ms", "p95_tpot_ms")}}
+        if tracer is not None:
+            stats["trace_events"] = len(tracer.events())
+        tokens = [r.generated for r in sorted(done, key=lambda r: r.uid)]
+        if profile:
+            for p in prompts[:4]:
+                router.submit(p[:64], max_new_tokens=64)
+            while any(r is None or r.t_first_token is None for r in eng.active):
+                router.step()
+            wall_tick, busy, idle, _ = profile_ticks(router.step)
+            check(busy is not None, f"plane cost {arm}: the profiler saw no device time")
+            stats["profile"] = {"wall_ms_per_tick": wall_tick, "device_ms_per_tick": busy,
+                                "device_idle_share": idle}
+        ticks = eng.steps
+    del eng, router
+    return stats, tokens, ticks
+
+
+def phase_plane_cost(cfg, params):
+    """[plane cost]: what the observability plane and the control plane
+    cost host-bound serving. danube at full size in bf16 (``params``,
+    built once) serves the serving phases' load (8 requests, prompts of
+    64-512 tokens, 32 new, 4 slots, chunk 16) through the library under
+    each arm of :func:`plane_arm`, in PLANE_COST_ROUNDS rounds that rotate
+    the arms' order (A B C D, B C D A, ...); the first round also profiles
+    each arm. Checks every run's greedy tokens equal to the first's; logs
+    per arm the median, min and max of each metric, the ratio of the
+    medians to A's, and the per-round ratios to A. The prompts come from a
+    generator of its own, seeded with SEED, so the later phases draw what
+    they drew before the phase existed. Returns the launches: 2L+1
+    RMSNorm per engine tick."""
+    import numpy as np
+    rng = np.random.RandomState(SEED)
+    lens = rng.randint(64, 513, size=8)
+    prompts = [rng.randint(0, cfg.vocab_size, size=int(n)).tolist() for n in lens]
+    runs = {a: [] for a in PLANE_COST_ARMS}
+    want, ticks = None, 0
+    for rnd in range(PLANE_COST_ROUNDS):
+        order = PLANE_COST_ARMS[rnd % 4:] + PLANE_COST_ARMS[:rnd % 4]
+        for arm in order:
+            stats, tokens, n = serve_arm(cfg, params, prompts, arm, profile=rnd == 0)
+            ticks += n
+            want = tokens if want is None else want
+            check(tokens == want, f"plane cost {arm}, round {rnd}: greedy tokens differ")
+            runs[arm].append(stats)
+        free_cuda()
+    keys = ("tokens_per_s", "ms_per_tick", "p50_ttft_ms", "p95_ttft_ms",
+            "p50_tpot_ms", "p95_tpot_ms")
+    med = {a: {k: statistics.median(r[k] for r in runs[a]) for k in keys} for a in runs}
+    report = {"arch": cfg.name, "layers": cfg.num_layers, "requests": len(prompts),
+              "prompt_lens": [int(n) for n in lens], "new_tokens": 32, "slots": 4,
+              "prefill_chunk": 16, "rounds": PLANE_COST_ROUNDS, "arms": {}}
+    for a in runs:
+        report["arms"][a] = {
+            "median": med[a],
+            "min": {k: min(r[k] for r in runs[a]) for k in keys},
+            "max": {k: max(r[k] for r in runs[a]) for k in keys},
+            "ratio_of_medians_to_A": {k: med[a][k] / med["A"][k] for k in keys},
+            "per_round_ratio_to_A": {k: [r[k] / ra[k] for r, ra in zip(runs[a], runs["A"])]
+                                     for k in ("tokens_per_s", "ms_per_tick")},
+            "profile": runs[a][0]["profile"],
+            "trace_events": [r.get("trace_events") for r in runs[a]],
+            "runs": runs[a]}
+    log(f"[plane cost] {json.dumps(report)}")
+    return {"flash_attention": 0, "ssd_chunk": 0,
+            "rmsnorm": ticks * (2 * cfg.num_layers + 1)}
 
 
 def rmsnorm_inputs(gen, shape):
@@ -2179,6 +2444,14 @@ def main() -> int:
           and paths["dense"]["ssd_chunk"] == 0 and paths["dense"]["rmsnorm"] > 0,
           f"dense path launches {paths['dense']}: want {want_flash} flash, no SSD")
     timed("profile " + ARCH, phase_profile, cfg, params, rng)
+    # the plane cost path: danube's weights again, served under the four
+    # arms; RMSNorm's launches, 2L+1 per engine tick, counted exactly
+    reset_launch_counts()
+    want = timed("plane cost", phase_plane_cost, cfg, params)
+    paths["plane_cost"] = launch_counts()
+    log(f"[plane cost path] kernel launches: {paths['plane_cost']}")
+    check(paths["plane_cost"] == want,
+          f"plane cost path launches {paths['plane_cost']} != {want}")
     del params
     torch.cuda.empty_cache()
 

@@ -69,7 +69,8 @@ Known sync points (prefix-matchable, e.g. ``"store."`` hits all three):
 
 The port's own copy of the JAX package's ``api/chaos.py`` (pure
 Python; the port imports nothing of that package). It records injected
-delays per point in plain lists (the port has no metrics registry).
+delays per point in the ``plane_torch_chaos_injected_delay_seconds``
+histogram, as the JAX package does in its own.
 """
 
 from __future__ import annotations
@@ -80,6 +81,8 @@ import threading
 import time
 from contextlib import contextmanager
 from typing import Dict, Iterable, Iterator, List, Optional, Set, Tuple
+
+from ..obs import histogram, quantile
 
 __all__ = ["FaultInjector", "InjectedFault", "sync_point", "install",
            "installed", "SYNC_POINTS", "LockOrderWitness"]
@@ -94,6 +97,13 @@ SYNC_POINTS = (
     "rollout.stamp", "rollout.delete", "rollout.evict", "rollout.canary",
     "serve.step", "serve.admit", "serve.complete", "router.dispatch",
 )
+
+# Injected-delay distribution per sync point (docs/OBSERVABILITY.md).
+# Label cardinality is bounded by SYNC_POINTS — the planelint
+# sync-points pass keeps that tuple closed.
+_CHAOS_DELAY = histogram("plane_torch_chaos_injected_delay_seconds",
+                         "injected delay per sync-point hit",
+                         labels=("point",))
 
 
 class InjectedFault(RuntimeError):
@@ -142,9 +152,9 @@ class FaultInjector:
         self.kills = 0
         self.latency_injections = 0
         self.latency_injected_s = 0.0
-        # point -> every injected delay (s): the distribution summary()
-        # reports (the port keeps plain records, no metrics registry)
-        self._h_delay: Dict[str, List[float]] = {}
+        # point -> histogram cell: the injected-delay distribution the
+        # summary() satellite surfaces (and the exporters aggregate)
+        self._h_delay: Dict[str, object] = {}
 
     @staticmethod
     def _matches(point: str, patterns: Tuple[str, ...]) -> bool:
@@ -179,7 +189,11 @@ class FaultInjector:
                 self.latency_injections += 1
                 self.latency_injected_s += delay
             if delay > 0.0:
-                self._h_delay.setdefault(point, []).append(delay)
+                cell = self._h_delay.get(point)
+                if cell is None:
+                    cell = self._h_delay[point] = _CHAOS_DELAY.cell(
+                        point=point)
+                cell.observe(delay)
         if kill:
             raise InjectedFault(f"injected worker kill at {point} "
                                 f"(kill #{self.kills}, seed {self.seed})")
@@ -189,26 +203,19 @@ class FaultInjector:
     def summary(self) -> Dict[str, object]:
         with self._lock:
             hists = {}
-            for point, delays in sorted(self._h_delay.items()):
+            for point, cell in sorted(self._h_delay.items()):
+                snap = cell.snapshot()          # type: ignore[attr-defined]
                 hists[point] = {
-                    "count": len(delays),
-                    "sum_s": round(sum(delays), 6),
-                    "p50_ms": round(_quantile(delays, 0.5) * 1e3, 3),
-                    "p95_ms": round(_quantile(delays, 0.95) * 1e3, 3),
+                    "count": snap["count"],
+                    "sum_s": round(snap["sum"], 6),
+                    "p50_ms": round(quantile(snap, 0.5) * 1e3, 3),
+                    "p95_ms": round(quantile(snap, 0.95) * 1e3, 3),
                 }
             return {"seed": self.seed, "hits": dict(self.hits),
                     "delays": self.delays, "kills": self.kills,
                     "latency_injections": self.latency_injections,
                     "latency_injected_s": round(self.latency_injected_s, 6),
                     "delay_hist": hists}
-
-
-def _quantile(values: List[float], q: float) -> float:
-    """Nearest-rank ``q``-quantile of ``values`` (0.0 when empty)."""
-    if not values:
-        return 0.0
-    ordered = sorted(values)
-    return ordered[min(len(ordered) - 1, int(q * len(ordered)))]
 
 
 # The installed injector. One global slot (not thread-local): the whole

@@ -21,7 +21,8 @@ converge through the same code path (the elastic story of the paper's
 
 The port's own copy of the JAX package's ``api/controllers.py``: the
 attachment's ``MeshRuntime`` builds a torch ``DeviceMesh``, and the
-rolling-update pressure is kept in plain integers.
+rolling-update pressure is kept in plain integers and in the
+``plane_torch_rollout_*`` gauges.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from ..core.drivers import DriverRegistry
 from ..core.nri import Events
 from ..core.oci import AttachmentSpec, MeshRuntime
 from ..core.planner import MeshPlanner
+from ..obs import gauge
 from .chaos import sync_point
 from .objects import (ApiObject, Condition, FALSE, TRUE, Workload,
                       CONDITION_ALLOCATED, CONDITION_ATTACHED,
@@ -49,6 +51,16 @@ from .workqueue import WorkQueue
 __all__ = ["Controller", "AllocationController", "PrepareController",
            "AttachmentController", "WorkloadController", "ControlPlane",
            "RETRYABLE_REASONS"]
+
+# Rolling-update pressure per workload (docs/OBSERVABILITY.md): how many
+# replicas above spec (surge) and how many below ready (unavailable)
+# the current rolling step holds open.
+_RO_SURGE = gauge("plane_torch_rollout_surge_replicas",
+                  "replicas above spec during a rolling step",
+                  labels=("workload",))
+_RO_UNAVAILABLE = gauge("plane_torch_rollout_unavailable_replicas",
+                        "spec replicas not Ready during a rolling step",
+                        labels=("workload",))
 
 # Condition reasons that mark a reconcile *failure* the controller will
 # retry (as opposed to a normal "waiting for an upstream phase" state).
@@ -275,6 +287,17 @@ class WorkloadController(Controller):
         # workload name -> (surge, unavailable): how many replicas above
         # spec and how many below ready the current rolling step holds open
         self.pressure: Dict[str, Tuple[int, int]] = {}
+        # workload name -> (surge cell, unavailable cell); label
+        # cardinality is the live-workload count (registry fuse caps it)
+        self._g_cells: Dict[str, Tuple[Any, Any]] = {}
+
+    def _gauges(self, workload: str) -> Tuple[Any, Any]:
+        cells = self._g_cells.get(workload)
+        if cells is None:
+            cells = self._g_cells[workload] = (
+                _RO_SURGE.cell(workload=workload),
+                _RO_UNAVAILABLE.cell(workload=workload))
+        return cells
 
     def _replica_claims(self, plane: "ControlPlane", obj: ApiObject
                         ) -> Tuple[Optional[List[ApiObject]], str, bool]:
@@ -369,9 +392,11 @@ class WorkloadController(Controller):
             rollout["revisions"][rev] = rollout["revisions"].get(rev, 0) + 1
         if obj.status.outputs.get("rollout") != rollout:
             store.set_output("Workload", obj.meta.name, "rollout", rollout)
-        self.pressure[obj.meta.name] = (
+        pressure = self.pressure[obj.meta.name] = (
             max(0, len(claims) - wl.replicas),
             max(0, wl.replicas - rollout["ready"]))
+        for cell, n in zip(self._gauges(obj.meta.name), pressure):
+            cell.set(n)
         return claims, admission_msg, plan.converged
 
     def reconcile(self, plane: "ControlPlane", obj: ApiObject) -> bool:

@@ -48,9 +48,10 @@ Usage::
         rt.wait_ready("Workload", "job")
     # stop() joined the threads and synced the WAL
 
-The port's own copy of the JAX package's ``api/runtime.py``. It keeps
-no registry instruments: ``stats()`` reports the plain counters and the
-work queue's telemetry, without the latency histograms.
+The port's own copy of the JAX package's ``api/runtime.py``, with its
+instruments named ``plane_torch_runtime_*``: ``stats()`` reports the
+plain counters, the work queue's telemetry and, under ``"obs"``, the
+reconcile-latency and waiter-wait histograms.
 """
 
 from __future__ import annotations
@@ -61,6 +62,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
+from ..obs import counter, histogram, quantile
 from .chaos import sync_point
 from .objects import ApiObject, CONDITION_READY
 from .store import ApiStore, WatchEvent
@@ -69,6 +71,17 @@ __all__ = ["ControlPlaneRuntime", "ConditionWaiter", "RuntimeStats",
            "TokenBucket"]
 
 Key = Tuple[str, str]
+
+# Registry instruments (docs/OBSERVABILITY.md). Reconcile latency is
+# labeled by kind — bounded by the controller kind order, not by object
+# names.
+_RT_RECONCILE = histogram("plane_torch_runtime_reconcile_seconds",
+                          "wall time of one reconcile_key call",
+                          labels=("kind",))
+_RT_RESTARTS = counter("plane_torch_runtime_worker_restarts_total",
+                       "panicked workers respawned by the informer")
+_RT_WAITER_WAIT = histogram("plane_torch_runtime_waiter_wait_seconds",
+                            "condition-waiter creation -> resolution")
 
 class TokenBucket:
     """Minimal thread-safe token bucket (reconciles per second)."""
@@ -110,6 +123,7 @@ class ConditionWaiter:
         self.kind = kind
         self.name = name
         self.condition = condition
+        self.t_created = time.monotonic()   # waiter-wait histogram anchor
         self._event = threading.Event()
         self._obj: Optional[ApiObject] = None
         self._error: Optional[BaseException] = None
@@ -182,6 +196,7 @@ class RuntimeStats:
         if rt is not None:
             with rt.lock:   # queue counters mutate under the plane lock
                 out["workqueue"] = rt.plane.queue.telemetry()
+            out["obs"] = rt._obs_snapshot()
         return out
 
 
@@ -237,6 +252,10 @@ class ControlPlaneRuntime:
         # bare `+= 1` from concurrent workers drops increments
         self._stats_lock = threading.Lock()
         self._started = False
+        # registry cells (per-runtime; the exporters aggregate)
+        self._c_restarts = _RT_RESTARTS.cell()
+        self._h_waiter_wait = _RT_WAITER_WAIT.cell()
+        self._h_reconcile: Dict[str, Any] = {}   # kind -> histogram cell
 
     # -- lifecycle ---------------------------------------------------------
     @property
@@ -523,8 +542,10 @@ class ControlPlaneRuntime:
                     f"event — spec edit, capacity change — can retry it)")))
         if resolved and self.plane.journal is not None:
             self.plane.journal.flush()       # store lock is re-entrant
+        now = time.monotonic()
         for w, obj in resolved:
             self.stats.waiters_resolved += 1
+            self._h_waiter_wait.observe(now - w.t_created)
             w._resolve(obj)
         for w, err in failed:
             self.stats.waiters_failed += 1
@@ -577,6 +598,7 @@ class ControlPlaneRuntime:
                     f"{self.stats.last_panic}"))
                 return
             self.stats.restarts += 1
+            self._c_restarts.inc()
             self._spawn_worker(kind, idx)
 
     def _resolve_waiters(self) -> None:
@@ -599,8 +621,10 @@ class ControlPlaneRuntime:
             for w, _ in resolved:
                 if w in self._waiters:
                     self._waiters.remove(w)
+        now = time.monotonic()
         for w, obj in resolved:
             self.stats.waiters_resolved += 1
+            self._h_waiter_wait.observe(now - w.t_created)
             w._resolve(obj)
 
     # -- worker threads ----------------------------------------------------
@@ -637,22 +661,29 @@ class ControlPlaneRuntime:
     def _reconcile_key(self, key: Key) -> None:
         kind, name = key
         plane = self.plane
-        with self.lock:
-            obj = plane.store.try_get(kind, name)
-            if obj is None:
-                plane.queue.forget(kind, name)
+        cell = self._h_reconcile.get(kind)
+        if cell is None:
+            cell = self._h_reconcile[kind] = _RT_RECONCILE.cell(kind=kind)
+        t0 = time.perf_counter()
+        try:
+            with self.lock:
+                obj = plane.store.try_get(kind, name)
+                if obj is None:
+                    plane.queue.forget(kind, name)
+                    self.stats.reconciled += 1
+                    return
+                sync_point("runtime.worker.reconcile", killable=True,
+                           kind=kind, name=name)
+                for ctl in plane._by_kind.get(kind, ()):
+                    plane.reconcile_calls += 1
+                    ctl.reconcile(plane, obj)
+                    if plane.store.try_get(kind, name) is None:
+                        break            # deleted by an earlier controller
+                else:
+                    plane._update_backoff(kind, name, obj)
                 self.stats.reconciled += 1
-                return
-            sync_point("runtime.worker.reconcile", killable=True,
-                       kind=kind, name=name)
-            for ctl in plane._by_kind.get(kind, ()):
-                plane.reconcile_calls += 1
-                ctl.reconcile(plane, obj)
-                if plane.store.try_get(kind, name) is None:
-                    break            # deleted by an earlier controller
-            else:
-                plane._update_backoff(kind, name, obj)
-            self.stats.reconciled += 1
+        finally:
+            cell.observe(time.perf_counter() - t0)
         if plane.journal is not None:
             plane.journal.maybe_flush()
 
@@ -682,6 +713,22 @@ class ControlPlaneRuntime:
                 pass
 
     # -- introspection -----------------------------------------------------
+    def _obs_snapshot(self) -> Dict[str, Any]:
+        """Registry-instrument view for ``stats()`` (docs/OBSERVABILITY.md):
+        per-kind reconcile latency + waiter wait percentiles."""
+        lat: Dict[str, Any] = {}
+        for kind, cell in sorted(self._h_reconcile.items()):
+            snap = cell.snapshot()
+            lat[kind] = {"count": snap["count"],
+                         "p50_ms": round(quantile(snap, 0.5) * 1e3, 3),
+                         "p95_ms": round(quantile(snap, 0.95) * 1e3, 3)}
+        wsnap = self._h_waiter_wait.snapshot()
+        return {
+            "reconcile_latency_by_kind": lat,
+            "waiter_wait": {"count": wsnap["count"],
+                            "p50_ms": round(quantile(wsnap, 0.5) * 1e3, 3)},
+        }
+
     def __repr__(self) -> str:
         state = ("running" if self.running else
                  "failed" if self._failed else

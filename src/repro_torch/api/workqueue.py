@@ -20,20 +20,42 @@ backoff window and no new events exist, the loop fast-forwards the
 clock to the earliest deadline instead of spinning through empty
 rounds.
 
-The port's own copy of the JAX package's ``api/workqueue.py``: the
-telemetry stays in plain integers (the port has no metrics registry).
+The port's own copy of the JAX package's ``api/workqueue.py``, with its
+instruments named ``plane_torch_workqueue_*``.
 """
 
 from __future__ import annotations
 
+import threading
 import zlib
 from typing import Dict, Iterable, List, Optional, Tuple
 
+from ..obs import active, counter, gauge, histogram
 from .chaos import sync_point
 
 __all__ = ["WorkQueue"]
 
 Key = Tuple[str, str]  # (kind, name)
+
+# Registry instruments (docs/OBSERVABILITY.md). These are *sampled*:
+# every queue mutation already runs under the plane's reconcile lock,
+# so the hot path counts in plain ints and mirrors them into the cells
+# from a registry collect hook — exporters see the same totals, the
+# per-operation cost is an integer add in both the enabled and the
+# disabled arm, and telemetry() reads the plain ints (always exact).
+_WQ_ENQUEUED = counter("plane_torch_workqueue_enqueued_total",
+                       "objects accepted into the dirty queue")
+_WQ_POPPED = counter("plane_torch_workqueue_popped_total",
+                     "keys admitted to a reconcile round")
+_WQ_DEFERRED = counter("plane_torch_workqueue_deferred_total",
+                       "pop attempts parked by a backoff window")
+_WQ_REQUEUES = counter("plane_torch_workqueue_requeues_total",
+                       "keys re-dirtied after having been popped")
+_WQ_DEPTH = gauge("plane_torch_workqueue_depth",
+                  "queued keys (ready or in backoff)")
+_WQ_BACKOFF = histogram("plane_torch_workqueue_backoff_rounds",
+                        "backoff delay applied per reconcile failure",
+                        buckets=(1, 2, 4, 8, 16, 32, 64))
 
 
 class WorkQueue:
@@ -47,14 +69,45 @@ class WorkQueue:
         self._clock = 0                         # current round number
         self.backoff_base = backoff_base
         self.backoff_cap = backoff_cap
-        # telemetry: plain ints (mutations are serialized by the plane's
-        # reconcile lock). _n_requeues counts keys re-dirtied after having
-        # been popped at least once — the numerator of the requeue rate.
+        # telemetry: plain ints on the hot path (mutations are serialized
+        # by the plane's reconcile lock), mirrored into this queue's
+        # registry cells only when an exporter collects (_flush_obs).
+        # _n_requeues counts keys re-dirtied after having been popped at
+        # least once — the numerator of the requeue rate.
         self._n_enqueued = 0
         self._n_popped = 0
         self._n_deferred = 0
         self._n_requeues = 0
         self._popped_once: Dict[Key, None] = {}
+        self._c_enqueued = _WQ_ENQUEUED.cell()
+        self._c_popped = _WQ_POPPED.cell()
+        self._c_deferred = _WQ_DEFERRED.cell()
+        self._c_requeues = _WQ_REQUEUES.cell()
+        self._g_depth = _WQ_DEPTH.cell()
+        self._h_backoff = _WQ_BACKOFF.cell()
+        self._flushed = [0, 0, 0, 0]
+        self._flush_lock = threading.Lock()
+        if self._c_enqueued.enabled:
+            active().add_collect_hook(self._flush_obs)
+
+    def _flush_obs(self) -> None:
+        """Mirror the plain-int telemetry into the registry cells.
+
+        Collect hook: runs when an exporter reads, never on the hot
+        path. Serialized against concurrent collects by its own lock;
+        deltas keep the cumulative cells exact at every flush.
+        """
+        with self._flush_lock:
+            pairs = ((self._n_enqueued, self._c_enqueued),
+                     (self._n_popped, self._c_popped),
+                     (self._n_deferred, self._c_deferred),
+                     (self._n_requeues, self._c_requeues))
+            for i, (n, cell) in enumerate(pairs):
+                d = n - self._flushed[i]
+                if d:
+                    cell.inc(d)
+                    self._flushed[i] = n
+            self._g_depth.set(len(self))
 
     # read-only views of the plain-int telemetry
     @property
@@ -109,6 +162,7 @@ class WorkQueue:
         delay = window + jitter
         self._failures[key] = f + 1
         self._not_before[key] = self._clock + delay
+        self._h_backoff.observe(delay)
         return delay
 
     def success(self, kind: str, name: str) -> None:

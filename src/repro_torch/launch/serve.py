@@ -4,6 +4,8 @@
       --requests 8 --new-tokens 16
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --claim-chips 2 --state-dir /tmp/serve-state --node-plane
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --claim-chips 1 --obs-dir /tmp/obs
 
 Requests go through the front-end :class:`~repro_torch.serve.router.
 Router` over ``--replicas`` engine replicas (load-aware dispatch,
@@ -19,6 +21,11 @@ then named after the stamped claims, and the SLO snapshot is published
 back into the workload's ``outputs["slo"]`` on the main thread, after
 the router has drained. The informer and node-agent threads touch no
 tensor: every CUDA call stays on the main thread.
+
+With ``--obs-dir DIR`` a lifecycle tracer records every request (and,
+with a plane, every store object) and at exit the registry and the
+spans are written to DIR as ``metrics.prom``, ``metrics.json`` and
+``spans.json``, which ``scripts/obsctl.py`` reads.
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ from typing import Any, Dict, List, Optional
 def provision_replicas(slots: int, chips_per_replica: int,
                        state_dir: Optional[str] = None,
                        reconcile_mode: str = "threaded",
-                       node_plane: bool = False):
+                       node_plane: bool = False, tracer=None):
     """Declarative serve replica set -> (plane, workload ApiObject).
 
     With ``state_dir``, an existing WAL is recovered first: the stamped
@@ -49,6 +56,12 @@ def provision_replicas(slots: int, chips_per_replica: int,
     by the topology scheduler. The started
     :class:`~repro_torch.node.NodePlane` is reachable as
     ``plane.registry.node_plane``; the caller stops it.
+
+    A ``tracer`` (:class:`~repro_torch.obs.Tracer`) is attached to the
+    plane's store before anything is submitted, so its spans hold every
+    replica claim's and the workload's lifecycle up to Ready; the caller
+    detaches it. (The JAX package's launcher attaches its tracer once the
+    replica set is Ready, and so records none of that lifecycle.)
     """
     from .. import core
     from ..api import ControlPlane, ControlPlaneRuntime, Workload
@@ -60,6 +73,8 @@ def provision_replicas(slots: int, chips_per_replica: int,
     reg = core.DriverRegistry()
     reg.add(core.TpuDriver(cluster)).add(core.IciDriver(cluster))
     plane = ControlPlane.open(state_dir, reg, cluster)
+    if tracer is not None:
+        tracer.attach(plane.store)
     if node_plane:
         from ..node import NodePlane
         NodePlane(plane).start()     # agents first (fresh leases), then
@@ -119,10 +134,19 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     ap.add_argument("--node-plane", action="store_true",
                     help="run per-node agents; replica claims are "
                          "scheduler-placed and survive node death")
+    ap.add_argument("--obs-dir", default=None,
+                    help="write metrics.prom/metrics.json/spans.json "
+                         "here at exit (scripts/obsctl.py reads them)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' runs the "
                          "plain PyTorch path)")
     args = ap.parse_args(argv)
+
+    obs_tracer = None
+    if args.obs_dir:
+        from ..obs import Tracer, install_tracer
+        obs_tracer = Tracer()
+        install_tracer(obs_tracer)
 
     knd = None
     plane = None
@@ -130,7 +154,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         plane, wl = provision_replicas(args.slots, args.claim_chips,
                                        state_dir=args.state_dir,
                                        reconcile_mode=args.reconcile_mode,
-                                       node_plane=args.node_plane)
+                                       node_plane=args.node_plane,
+                                       tracer=obs_tracer)
         lat = wl.status.outputs["phase_latency_s"]
         claims = wl.status.outputs["claims"]
         print(f"[knd] serve replica set Ready: {len(claims)} claims "
@@ -206,6 +231,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         plane.registry.node_plane.stop()
     if plane is not None and plane.journal is not None:
         plane.journal.close()   # a later run in this process recovers it
+    if obs_tracer is not None:
+        from ..obs import dump_artifacts, install_tracer
+        install_tracer(None)
+        obs_tracer.detach()
+        out["obs"] = dump_artifacts(args.obs_dir, tracer=obs_tracer)
     print(json.dumps(out, indent=1))
     return out
 

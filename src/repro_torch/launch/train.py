@@ -7,6 +7,8 @@
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
       --steps 4 --batch 8 --seq 32 --mesh 2x2 --devices 4 \
       --state-dir /tmp/train-state --node-plane
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+      --steps 2 --obs-dir /tmp/obs
 
 AdamW on a cosine schedule (warmup ``steps // 20``), as the JAX
 package's ``launch/train.py``; ``--resume`` restores the newest committed
@@ -41,6 +43,11 @@ and attachments are compared with rank 0's: a rank that would build
 another mesh raises. Between the two, a rank makes no collective while
 it waits for its workload: the only process-group calls are the mesh
 build's, which every rank makes once, in the same order.
+
+With ``--obs-dir DIR`` a lifecycle tracer is attached to the plane's
+store (with ``--mesh``) and at exit rank 0 writes the registry and the
+spans to DIR as ``metrics.prom``, ``metrics.json`` and ``spans.json``,
+which ``scripts/obsctl.py`` reads.
 """
 
 from __future__ import annotations
@@ -109,9 +116,12 @@ def attention_impl(cfg, device) -> str:
             and cfg.resolved_head_dim in HEAD_DIMS else "auto")
 
 
-def _mesh_plane(args, d: int, m: int, rank: int, device_type: str):
+def _mesh_plane(args, d: int, m: int, rank: int, device_type: str,
+                tracer=None):
     """The declarative KND workflow for a ``d x m`` mesh -> (plane,
-    workload object, informer runtime or None, node plane or None)."""
+    workload object, informer runtime or None, node plane or None).
+    A ``tracer`` is attached to the plane's store before any plane
+    thread starts."""
     import torch.distributed as dist
 
     from .. import core
@@ -156,6 +166,8 @@ def _mesh_plane(args, d: int, m: int, rank: int, device_type: str):
             plane = ControlPlane(reg, cluster, store=load_store(box[0]),
                                  runtime=runtime)
             plane.adopt()
+    if tracer is not None:
+        tracer.attach(plane.store)
     node_plane = informer = None
     if args.node_plane:
         # agents register BEFORE the informer starts: recovered Nodes
@@ -255,6 +267,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                          "are published per host under heartbeat leases, "
                          "claims are placed by the topology scheduler, "
                          "and a dead agent is evicted + rescheduled")
+    ap.add_argument("--obs-dir", default=None,
+                    help="write metrics.prom/metrics.json/spans.json "
+                         "here at exit (scripts/obsctl.py reads them)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' runs the "
                          "plain PyTorch path)")
@@ -316,6 +331,12 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         created = True
     rank = dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
 
+    obs_tracer = None
+    if args.obs_dir:
+        from ..obs import Tracer, install_tracer
+        obs_tracer = Tracer()
+        install_tracer(obs_tracer)
+
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.layers:
         cfg = cfg.replace(num_layers=args.layers)
@@ -330,7 +351,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     if args.mesh:
         from ..api import allocation_records
         plane, wl, informer, node_plane = _mesh_plane(args, d, m, rank,
-                                                      device.type)
+                                                      device.type, obs_tracer)
         plan = wl.status.outputs["plan"]
         mesh = wl.status.outputs["mesh"]
         rules = ShardingRules(mesh=mesh)
@@ -381,6 +402,13 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         node_plane.stop()
     if plane is not None and plane.journal is not None:
         plane.journal.close()   # a later run in this process recovers it
+    if obs_tracer is not None:
+        from ..obs import dump_artifacts, install_tracer
+        install_tracer(None)
+        obs_tracer.detach()
+        if rank == 0:
+            paths = dump_artifacts(args.obs_dir, tracer=obs_tracer)
+            print(f"[obs] artifacts: {', '.join(sorted(paths.values()))}")
 
     losses = [h["loss"] for h in trainer.history]
     report = {

@@ -27,11 +27,18 @@ from ..api.chaos import InjectedFault, sync_point
 from ..api.objects import Lease, Node
 from ..core.claims import ResourceClaim
 from ..core.uid import new_uid
+from ..obs import histogram
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
     from ..api.controllers import ControlPlane
 
 __all__ = ["NodeAgent", "NodePlane", "NodeUnavailableError"]
+
+# How long one heartbeat's store write takes (docs/OBSERVABILITY.md).
+# Unlabeled on purpose: node names are unbounded; cells aggregate
+# across the fleet at export.
+_LEASE_RENEW = histogram("plane_torch_node_lease_renew_seconds",
+                         "lease heartbeat store-write latency")
 
 
 class NodeUnavailableError(RuntimeError):
@@ -64,6 +71,7 @@ class NodeAgent:
         self._killed = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._registered = False
+        self._h_renew = _LEASE_RENEW.cell()
 
     # -- lifecycle ---------------------------------------------------------
     @property
@@ -120,9 +128,10 @@ class NodeAgent:
         if self._killed.is_set():
             return
         now = self.plane.node_clock()
-        self.plane.store.update_status(
-            "Lease", self.node,
-            lambda st: st.outputs.__setitem__("renew_time", now))
+        with self._h_renew.time():
+            self.plane.store.update_status(
+                "Lease", self.node,
+                lambda st: st.outputs.__setitem__("renew_time", now))
         self.heartbeats += 1
 
     def _run(self) -> None:

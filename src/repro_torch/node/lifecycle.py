@@ -16,7 +16,8 @@ pre-crash leases as stale until their agents re-register.
 
 The port's own copy of the JAX package's ``node/lifecycle.py`` (pure
 Python; the port imports nothing of that package). It counts evictions
-in a plain integer.
+in a plain integer and in the ``plane_torch_node_evictions_total``
+counter.
 """
 
 from __future__ import annotations
@@ -25,11 +26,15 @@ from typing import TYPE_CHECKING, List, Optional, Tuple
 
 from ..api.controllers import Controller
 from ..api.objects import (ApiObject, CONDITION_READY, Lease, Node)
+from ..obs import counter
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
     from ..api.controllers import ControlPlane
 
 __all__ = ["DrainController", "NodeLifecycleController", "lease_state"]
+
+_EVICTIONS = counter("plane_torch_node_evictions_total",
+                     "dead-node inventory withdrawals (lease lapsed)")
 
 # Condition the DrainController maintains on draining nodes.
 CONDITION_DRAINED = "Drained"
@@ -68,6 +73,7 @@ class NodeLifecycleController(Controller):
     def __init__(self) -> None:
         # dead-node inventory withdrawals (lease lapsed)
         self.evictions = 0
+        self._c_evictions = _EVICTIONS.cell()
 
     def reconcile(self, plane: "ControlPlane", obj: ApiObject) -> bool:
         node: Node = obj.spec
@@ -100,6 +106,7 @@ class NodeLifecycleController(Controller):
             pool.withdraw_node(node.name)
             plane.sync_inventory()
             self.evictions += 1
+            self._c_evictions.inc()
             changed = True
         return changed
 

@@ -24,7 +24,8 @@ to the same place.
 
 The port's own copy of the JAX package's ``rollout/canary.py`` (pure
 Python; the port imports nothing of that package). It counts phase
-transitions in a plain dict.
+transitions in a plain dict and in the
+``plane_torch_rollout_canary_transitions_total`` counter.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from typing import TYPE_CHECKING, Any, Dict, Optional
 from ..api.chaos import sync_point
 from ..api.controllers import Controller
 from ..api.objects import ApiObject, CanaryRollout, CONDITION_READY, Workload
+from ..obs import counter
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
     from ..api.controllers import ControlPlane
@@ -44,6 +46,11 @@ __all__ = ["CanaryController", "spec_blob"]
 PHASE_DEPLOYED = "Deployed"
 PHASE_PROMOTED = "Promoted"
 PHASE_ROLLED_BACK = "RolledBack"
+
+# Phase label cardinality is the closed set above.
+_CANARY_TRANSITIONS = counter("plane_torch_rollout_canary_transitions_total",
+                              "canary phase transitions recorded",
+                              labels=("phase",))
 
 def spec_blob(spec: Workload) -> str:
     """Canonical JSON for a workload spec — the byte-identity yardstick."""
@@ -58,9 +65,15 @@ class CanaryController(Controller):
     def __init__(self) -> None:
         # phase -> transitions recorded (plain counts)
         self.transitions: Dict[str, int] = {}
+        self._c_transitions: Dict[str, Any] = {}
 
     def _count_transition(self, phase: str) -> None:
         self.transitions[phase] = self.transitions.get(phase, 0) + 1
+        cell = self._c_transitions.get(phase)
+        if cell is None:
+            cell = self._c_transitions[phase] = _CANARY_TRANSITIONS.cell(
+                phase=phase)
+        cell.inc()
 
     # -- overlay edits (all idempotent) ------------------------------------
     @staticmethod

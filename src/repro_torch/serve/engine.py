@@ -20,7 +20,10 @@ purpose: there such a request completes, its tokens drawn from the NaN
 logits that ``jnp.take`` leaves for the id; here the id would fail the
 embedding lookup of the whole tick (a device-side assert on CUDA).
 
-Counts are plain integers (``stats()``); sampling uses
+Counts are plain integers (``stats()``), mirrored by the
+``plane_torch_serve_*`` registry instruments (:mod:`repro_torch.obs`);
+each request's lifecycle goes to the installed tracer through
+:func:`~repro_torch.obs.emit`. Sampling uses
 ``np.random.RandomState(seed)`` as the JAX engine does, so temperature
 sampling draws the same tokens from equal logits.
 """
@@ -40,6 +43,7 @@ from ..api.chaos import sync_point
 from ..device import resolve_device
 from ..models import lm
 from ..models.config import ModelConfig
+from ..obs import counter, emit, histogram
 from .kvcache import KVCacheManager
 
 __all__ = ["ServeEngine", "Request", "ServeError", "EmptyPromptError",
@@ -73,6 +77,23 @@ STATUS_PREFILL = "prefill"
 STATUS_DECODE = "decode"
 STATUS_DONE = "done"
 STATUS_FAILED = "failed"
+
+# Unlabeled: engines are unbounded-cardinality (one per replica per
+# test); cells aggregate fleet-wide at export, per-engine reads stay
+# exact through stats() (docs/OBSERVABILITY.md).
+_SRV_ADMITTED = counter("plane_torch_serve_admitted_total",
+                        "requests admitted into a slot")
+_SRV_COMPLETED = counter("plane_torch_serve_completed_total",
+                         "requests finished with all tokens")
+_SRV_FAILED = counter("plane_torch_serve_failed_total",
+                      "requests failed with a typed ServeError")
+_SRV_STEPS = counter("plane_torch_serve_steps_total",
+                     "engine ticks that fed the model")
+_SRV_QUEUE_TIME = histogram("plane_torch_serve_queue_time_seconds",
+                            "submit -> slot admission wait")
+
+# Engine names for trace emits ("eng-0:r3"): stable within a process.
+_ENGINE_IDS = itertools.count()
 
 
 @dataclass
@@ -140,7 +161,7 @@ class ServeEngine:
         self.prefill_chunk = max(1, prefill_chunk)
         self.rng = np.random.RandomState(seed)
         self.clock = clock
-        self.name = name
+        self.name = name if name is not None else f"eng-{next(_ENGINE_IDS)}"
         self._uid = itertools.count()
         self.kv = KVCacheManager(cfg, batch_slots, max_len,
                                  block_size=block_size,
@@ -155,6 +176,15 @@ class ServeEngine:
         self.admitted = 0
         # (completed, failed) counts already returned by run()
         self._run_mark = [0, 0]
+        self._c_admitted = _SRV_ADMITTED.cell()
+        self._c_completed = _SRV_COMPLETED.cell()
+        self._c_failed = _SRV_FAILED.cell()
+        self._c_steps = _SRV_STEPS.cell()
+        self._h_queue_time = _SRV_QUEUE_TIME.cell()
+
+    def _rname(self, r: Request) -> str:
+        """Trace identity for a request: engine-scoped, stable."""
+        return f"{self.name}:r{r.uid}"
 
     # -- submission --------------------------------------------------------
     def submit(self, prompt: List[int], max_new_tokens: int = 16,
@@ -164,6 +194,8 @@ class ServeEngine:
         r = Request(list(prompt), max_new_tokens, temperature,
                     uid=next(self._uid))
         r.t_submit = self.clock()
+        emit("Request", self._rname(r), "queued",
+             prompt_len=len(r.prompt), max_new_tokens=max_new_tokens)
         if not r.prompt:
             return self._fail(r, EmptyPromptError("empty prompt"))
         lo, hi = min(r.prompt), max(r.prompt)
@@ -187,6 +219,8 @@ class ServeEngine:
         r.state = STATUS_FAILED
         r.error = err
         r.t_done = self.clock()
+        self._c_failed.inc()
+        emit("Request", self._rname(r), "failed", error=type(err).__name__)
         self.failed.append(r)
         if slot is not None:
             self.kv.release(slot)
@@ -213,6 +247,9 @@ class ServeEngine:
             self._fed[i] = 0
             head.state = STATUS_PREFILL
             self.admitted += 1
+            self._c_admitted.inc()
+            self._h_queue_time.observe(self.clock() - head.t_submit)
+            emit("Request", self._rname(head), "admitted", slot=i)
             sync_point("serve.admit", slot=i, uid=head.uid)
 
     def has_work(self) -> bool:
@@ -230,6 +267,7 @@ class ServeEngine:
         if not slots_live:
             return False
         self.steps += 1
+        self._c_steps.inc()
 
         adv = np.zeros((self.slots,), np.int32)
         for i in slots_live:
@@ -294,10 +332,14 @@ class ServeEngine:
             if r.t_first_token is None:
                 r.t_first_token = now
                 r.state = STATUS_DECODE
+                emit("Request", self._rname(r), "first_token")
             r.generated.append(nxt)
             if len(r.generated) >= r.max_new_tokens:
                 r.state = STATUS_DONE
                 r.t_done = now
+                self._c_completed.inc()
+                emit("Request", self._rname(r), "complete",
+                     tokens=len(r.generated))
                 self.completed.append(r)
                 self.kv.release(i)
                 self.active[i] = None

@@ -33,8 +33,16 @@ import torch
 
 from ..models import lm
 from ..models.config import ModelConfig
+from ..obs import gauge
 
 __all__ = ["KVCacheManager"]
+
+# Unlabeled: one cell per manager, summed fleet-wide at export;
+# per-manager occupancy stays exact through stats().
+_KV_USED = gauge("plane_torch_serve_kv_used_blocks",
+                 "KV pool blocks currently reserved by admitted requests")
+_KV_FREE = gauge("plane_torch_serve_kv_free_blocks",
+                 "KV pool blocks free for admission")
 
 
 class KVCacheManager:
@@ -65,6 +73,9 @@ class KVCacheManager:
         # physical blocks awaiting zero-epoch in the next decode_chunk
         self._pending_zero: List[int] = []
         self._pending_reset = np.zeros((slots,), bool)
+        self._g_used = _KV_USED.cell()
+        self._g_free = _KV_FREE.cell()
+        self._g_free.set(len(self._free))
 
     # -- accounting --------------------------------------------------------
     def blocks_for(self, tokens: int) -> int:
@@ -103,6 +114,8 @@ class KVCacheManager:
         self.pos[slot] = 0
         self._pending_zero.extend(blocks)
         self._pending_reset[slot] = True
+        self._g_used.set(self.used_blocks)
+        self._g_free.set(self.free_blocks)
 
     def advance(self, slot: int, n: int) -> None:
         """Move the slot's clock after a chunk; bounds were checked by
@@ -120,6 +133,8 @@ class KVCacheManager:
         self._owned[slot] = []
         self.table[slot, :] = 0
         self.pos[slot] = 0
+        self._g_used.set(self.used_blocks)
+        self._g_free.set(self.free_blocks)
 
     # -- per-tick device-side hygiene -------------------------------------
     def take_zero_blocks(self) -> Optional[np.ndarray]:

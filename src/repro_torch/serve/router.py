@@ -11,13 +11,29 @@ drains (the engine finishes its admitted work) rather than dropping.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from ..api.chaos import sync_point
+from ..obs import counter, histogram
 from .engine import Request, ServeEngine, ServeError
 from .slo import SloTracker
 
 __all__ = ["Router", "RouterOverloadError"]
+
+_RTR_REJECTED = counter("plane_torch_serve_router_rejections_total",
+                        "submits rejected with RouterOverloadError")
+_RTR_DISPATCH = counter("plane_torch_serve_router_dispatch_total",
+                        "submits dispatched to a replica")
+# Arm cardinality is the rollout plane's revision labels
+# (baseline/canary) — bounded by construction.
+_RTR_TTFT = histogram("plane_torch_serve_ttft_seconds",
+                      "time to first token, per arm", labels=("arm",))
+_RTR_TPOT = histogram("plane_torch_serve_tpot_seconds",
+                      "time per output token over decode, per arm",
+                      labels=("arm",))
+_RTR_LATENCY = histogram("plane_torch_serve_request_latency_seconds",
+                         "submit -> terminal end-to-end, per arm",
+                         labels=("arm",))
 
 
 class RouterOverloadError(ServeError):
@@ -40,6 +56,17 @@ class Router:
         self._finished: List[Request] = []
         self.dispatched: Dict[str, int] = {}
         self.rejected = 0
+        self._c_rejected = _RTR_REJECTED.cell()
+        self._c_dispatch = _RTR_DISPATCH.cell()
+        self._arm_cells: Dict[str, Tuple[Any, Any, Any]] = {}
+
+    def _latency_cells(self, arm: str) -> Tuple[Any, Any, Any]:
+        cells = self._arm_cells.get(arm)
+        if cells is None:
+            cells = self._arm_cells[arm] = (_RTR_TTFT.cell(arm=arm),
+                                            _RTR_TPOT.cell(arm=arm),
+                                            _RTR_LATENCY.cell(arm=arm))
+        return cells
 
     # -- replica-set membership -------------------------------------------
     def add_replica(self, name: str, engine: ServeEngine,
@@ -79,6 +106,7 @@ class Router:
                       if len(e.pending) < self.max_queue]
         if not candidates:
             self.rejected += 1
+            self._c_rejected.inc()
             raise RouterOverloadError(
                 f"all {len(self._replicas)} replica queues at "
                 f"max_queue_per_replica={self.max_queue}")
@@ -86,6 +114,7 @@ class Router:
                    key=lambda n: (self._replicas[n].load(), n))
         sync_point("router.dispatch", replica=name)
         self.dispatched[name] += 1
+        self._c_dispatch.inc()
         return self._replicas[name].submit(prompt, max_new_tokens,
                                            temperature)
 
@@ -132,8 +161,15 @@ class Router:
     def _harvest(self, name: str, eng: ServeEngine) -> None:
         arm = self._arms.get(name, "baseline")
         nc, nf = self._harvested.setdefault(name, [0, 0])
+        h_ttft, h_tpot, h_lat = self._latency_cells(arm)
         for r in eng.completed[nc:] + eng.failed[nf:]:
             self._finished.append(r)
+            if r.ttft_s is not None:
+                h_ttft.observe(r.ttft_s)
+            if r.tpot_s is not None:
+                h_tpot.observe(r.tpot_s)
+            if r.latency_s is not None:
+                h_lat.observe(r.latency_s)
             if self.slo is not None:
                 self.slo.observe_request(arm, r)
         self._harvested[name] = [len(eng.completed), len(eng.failed)]

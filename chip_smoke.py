@@ -12,7 +12,9 @@ depth, and arctic-480b and grok-1-314b (moe) at full width and reduced
 depth (2 and 4 layers: neither fits one 80 GB card whole), trains
 internvl2-1b at full size, trains h2o-danube-1.8b at full size through
 the train launcher, plans a mesh through the KND core and trains
-h2o-danube-1.8b at full size on it, serves and trains h2o-danube-1.8b at
+h2o-danube-1.8b at full size on it, trains mamba2-780m, hymba-1.5b,
+internvl2-1b and musicgen-medium at full size and grok-1-314b at full
+width and 1 layer on it, serves and trains h2o-danube-1.8b at
 full size through the launchers' control-plane flags (a reconciled
 replica set; a mesh the AttachmentController built, both with
 ``--obs-dir``), measures what the observability and control planes
@@ -99,6 +101,20 @@ weights from a seed, in phases (each logs its seconds):
   19. pod mean: compressed_pod_mean over the mesh run's gradient tree with
      one pod over NCCL: int8 in every SUM all_reduce, every mean bit-equal
      to the plain arithmetic, the new error within one quantisation step;
+  22. mesh families: on phase 17's plan over a new NCCL group, the SSD
+     chunk on DTensors (x over the batch and the heads, C and B over the
+     batch) at mamba2's and hymba's prefill shapes vs its plain version,
+     forward and gradient; then MESH_FAMILIES (mamba2, hymba, internvl2
+     with its patch embeddings and musicgen at full size under AdamW;
+     grok at full width and 1 layer under Adafactor, whose factored state
+     leaves room for its 13.1 GB of gradients), MESH_FAMILY_STEPS steps
+     of 8 x 64 tokens each, remat dots, the flash kernel, under
+     use_rules(ShardingRules(mesh=...)) and then, the first state freed,
+     without rules: every parameter a DTensor on cuda after the first,
+     each step's loss and grad norm within 1e-4 relative between the two,
+     each run's launches exact, grok's dropped choices equal; ms per step
+     (CUDA events) and peak memory of both, beside the card's name and
+     power limit;
   20. knd serve: danube at full size through the serve launcher, 4
      requests, plain and then with ``--claim-chips 1 --state-dir
      --node-plane`` (threaded informer): the workload Ready, one claim
@@ -128,13 +144,14 @@ weights from a seed, in phases (each logs its seconds):
      saved, the resumed losses equal within 1e-6, ``store.json`` loading
      into a store with the saved fingerprint; logs the codec, bytes, the
      gather's, snapshot's, write's and both restores' seconds;
-  11. the kernels line: launches on the twelve paths, in this order
+  11. the kernels line: launches on the thirteen paths, in this order
      (phases 5-6, the dense path; 6b, plane cost; 7-7c, the moe path;
      10-10b, the hybrid
      path; 12-12b, vision; 13-13b, audio; 14-14b, train; 15, trainer;
-     8-9, the ssm path; 17-19, mesh; 20, knd serve; 21 and 16, knd
-     train), each path's counts set to 0 just before it (the mesh path:
-     before each of its two runs) and read just after and checked, and
+     8-9, the ssm path; 17-19, mesh; 22, mesh families; 20, knd serve;
+     21 and 16, knd train), each path's counts set to 0 just before it
+     (the mesh and mesh families paths: before each of their runs) and
+     read just after and checked, and
      each kernel's time at its
      paths' shapes (taken after phase 4b) beside its plain version, a
      PyTorch library call computing the same function where there is
@@ -190,6 +207,14 @@ KND_OBS_DIR = os.path.join(ROOT, "build", "chip_smoke_obs")   # --obs-dir artifa
 KND_REQUESTS = 4                   # the declarative serve path's requests
 KND_STEPS = 2                      # the declarative train path's steps per run
 MESH_STEPS = 3                     # danube's steps on the planned mesh, and without
+# phase 22: (arch, layers (None: all), optimizer), each MESH_FAMILY_STEPS
+# steps on the planned mesh and as many without. grok at 1 layer is 6.53 B
+# parameters: 13.1 GB in bf16 and as much again in gradients; AdamW's f32
+# moments would add 52 GB, Adafactor's factored state a few MB
+MESH_FAMILIES = (("mamba2-780m", None, "adamw"), ("hymba-1.5b", None, "adamw"),
+                 ("internvl2-1b", None, "adamw"), ("musicgen-medium", None, "adamw"),
+                 ("grok-1-314b", 1, "adafactor"))
+MESH_FAMILY_STEPS = 2
 FRONTEND_REQUESTS = 4              # the frontends' serving requests
 # ticks per regime in each serving profile, timed and then profiled: few,
 # for the script's time (a profiled mamba2 tick records ~30 k kernels),
@@ -1835,6 +1860,161 @@ def phase_pod_mean(grads):
     log(f"[pod mean] {json.dumps(report)}")
 
 
+def ssd_dtensor_check(mesh, gen, shape, model_like):
+    """The SSD chunk on DTensors (x, dt and da sharded over the batch on
+    data and the heads on model, C and B over the batch) against its
+    plain version on the same tensors, forward and gradient (the plain
+    version's autograd, on both sides: the kernel has no backward).
+    Returns the worst error relative to each output's (gradient's)
+    largest magnitude, held to SSD_REL_TOL: at Q = 256 the JAX tests'
+    distribution gives outputs up to ~3e2, where phase 4b's abs 1e-4 is
+    ~2^-21 of them (phase 4b holds its Q = 256 cases to the same bound).
+    The launches it makes are comparisons, outside any path's count."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.ssd_scan.ops import ssd_chunk
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref
+    ins = [t.requires_grad_(True) for t in ssd_inputs(gen, *shape, torch.bfloat16, model_like)]
+    gs = [torch.randn(s, device=DEVICE, generator=gen) for s in (
+        ins[2].shape, shape[:2] + (shape[4], shape[3], shape[5]), shape[:2] + (shape[4],))]
+    pl_x, pl_cb = [Shard(0), Shard(3)], [Shard(0), Replicate()]
+    dins = [distribute_tensor(t.detach(), mesh, pl).requires_grad_(True)
+            for t, pl in zip(ins, [pl_cb, pl_cb, pl_x, pl_x, pl_x])]
+    before = launch_counts()["ssd_chunk"]
+    out = ssd_chunk(*dins)
+    torch.cuda.synchronize()
+    check(launch_counts()["ssd_chunk"] == before + 1
+          and all(isinstance(o, DTensor) for o in out),
+          f"ssd on a DTensor {shape}: not one launch with DTensor outputs")
+    torch.autograd.backward([o.to_local() for o in out], gs)
+    ref = ssd_chunk_ref(*ins)
+    grads = torch.autograd.grad(ref, ins, gs)
+    pairs = ([(o.to_local().detach(), r.detach()) for o, r in zip(out, ref)]
+             + [(d.grad.to_local(), g) for d, g in zip(dins, grads)])
+    err = max(max_abs(a, b) / max(float(b.abs().max()), 1e-30) for a, b in pairs)
+    check(err <= SSD_REL_TOL, f"ssd on a DTensor {shape} {'model-like' if model_like else 'test'}"
+                              f" distribution: rel err {err} > {SSD_REL_TOL}")
+    return err
+
+
+def phase_mesh_families(mesh):
+    """Every family but dense trained on the planned 1 x 1 mesh over
+    NCCL: first the SSD chunk on DTensors at mamba2's and hymba's prefill
+    shapes (b 1, nc 8, Q 256, x bf16; N 128, H 48 and N 16, H 50) against
+    its plain version, forward and gradient, at the JAX tests'
+    distribution and at model-like decays; then each of
+    MESH_FAMILIES at full width (grok at 1 layer, under Adafactor: AdamW's
+    state would not fit beside it), MESH_FAMILY_STEPS steps of 8 x 64
+    tokens, remat dots, the flash kernel, under
+    ``use_rules(ShardingRules(mesh=mesh))`` and then, the first state
+    freed, without rules. Holds every parameter a DTensor on cuda after
+    the first run, each step's loss and grad norm within 1e-4 relative
+    between the two, each run's launches (counts set to 0 just before it
+    and read just after) to the code's count, and grok's dropped choices
+    equal. Logs ms per step (CUDA events) and peak memory of both runs
+    beside the card. Returns each run's launches."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.parallel.sharding import ShardingRules, use_rules
+    from repro_torch.train.optimizer import Adafactor, AdamW
+    from repro_torch.train.schedule import constant_schedule
+    from repro_torch.train.train_step import StepConfig, init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    ssd = {f"{name} {dist}": ssd_dtensor_check(mesh, gen, shape, dist == "model-like")
+           for name, shape in (("mamba2", (1, 8, 256, 128, 48, 64)),
+                               ("hymba", (1, 8, 256, 16, 50, 64)))
+           for dist in ("test", "model-like")}
+    log(f"[mesh families] ssd chunk on DTensors vs plain, forward and gradient: {ssd}")
+    free_cuda()
+
+    def launches_per_step(cfg):
+        """remat dots reruns each layer body's forward: two passes per
+        layer of its norms (norm1, the gated norm of an SSD, norm2),
+        flash and SSD calls; one final norm."""
+        L = cfg.num_layers
+        norms = 1 + (cfg.family in ("ssm", "hybrid")) + (cfg.family != "ssm")
+        return {"flash_attention": 2 * L * (cfg.family != "ssm"),
+                "ssd_chunk": 2 * L * (cfg.family in ("ssm", "hybrid")),
+                "rmsnorm": 2 * norms * L + 1}
+
+    def run(cfg, opt, rules):
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        data = SyntheticLMData(cfg, 8, 64, seed=SEED)
+        metrics, ms = [], []
+        with use_rules(rules), DropCounter() as drops:
+            state = init_train_state(cfg, opt, SEED, DEVICE)
+            step = make_train_step(cfg, opt, StepConfig(remat="dots", attention_impl="kernel"))
+            reset_launch_counts()
+            for s in range(MESH_FAMILY_STEPS):
+                batch = device_batch(data.batch(s))
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                state, m = step(state, batch)
+                end.record()
+                end.synchronize()
+                ms.append(start.elapsed_time(end))
+                metrics.append({k: float(v) for k, v in m.items()})
+            counts = launch_counts()
+        dtensors = all(isinstance(p, DTensor) and p.device.type == DEVICE
+                       and p.device_mesh is mesh for p in tree_leaves(state["params"]))
+        peak = torch.cuda.max_memory_allocated()
+        del state, step
+        free_cuda()
+        return {"metrics": metrics, "ms": ms, "counts": counts, "peak": peak,
+                "drops": drops.drops, "dtensors": dtensors}
+
+    card = gpu_line()
+    runs = {}
+    for arch, layers, opt_name in MESH_FAMILIES:
+        cfg = get_config(arch)
+        if layers:
+            cfg = cfg.replace(num_layers=layers)
+        opt = (AdamW if opt_name == "adamw" else Adafactor)(constant_schedule(1e-4))
+        meshed = run(cfg, opt, ShardingRules(mesh=mesh))
+        plain = run(cfg, opt, None)
+        per_step = launches_per_step(cfg)
+        want = {k: MESH_FAMILY_STEPS * v for k, v in per_step.items()}
+        rels = {key: rel_diffs([m[key] for m in meshed["metrics"]],
+                               [m[key] for m in plain["metrics"]])
+                for key in ("loss", "grad_norm")}
+        report = {"arch": arch, "layers": cfg.num_layers, "params": cfg.param_count(),
+                  "optimizer": opt_name, "steps": MESH_FAMILY_STEPS, "batch": 8, "seq": 64,
+                  "remat": "dots", "attention": "kernel", "card": card,
+                  "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                  "loss_mesh": [m["loss"] for m in meshed["metrics"]],
+                  "loss_plain": [m["loss"] for m in plain["metrics"]],
+                  "grad_norm_mesh": [m["grad_norm"] for m in meshed["metrics"]],
+                  "grad_norm_plain": [m["grad_norm"] for m in plain["metrics"]],
+                  "rel_diff": rels, "ms_per_step_mesh": meshed["ms"],
+                  "ms_per_step_plain": plain["ms"],
+                  "max_memory_allocated_bytes_mesh": meshed["peak"],
+                  "max_memory_allocated_bytes_plain": plain["peak"],
+                  "drops_mesh": meshed["drops"], "drops_plain": plain["drops"],
+                  "launches_mesh": meshed["counts"], "launches_plain": plain["counts"]}
+        log(f"[mesh families] {json.dumps(report)}")
+        check(meshed["dtensors"], f"mesh families {arch}: after the mesh run a parameter "
+                                  f"is not a DTensor on the cuda mesh")
+        for key, rel in rels.items():
+            check(all(math.isfinite(m[key]) for m in meshed["metrics"] + plain["metrics"])
+                  and max(rel) <= 1e-4, f"mesh families {arch} {key}: rel {rel} > 1e-4")
+        check(meshed["counts"] == want and plain["counts"] == want,
+              f"mesh families {arch} launches: mesh {meshed['counts']}, "
+              f"plain {plain['counts']}, want {want}")
+        check(meshed["drops"] == plain["drops"],
+              f"mesh families {arch}: dropped {meshed['drops']} choices on the mesh, "
+              f"{plain['drops']} without")
+        runs[f"{arch} mesh"], runs[f"{arch} plain"] = meshed["counts"], plain["counts"]
+    return runs
+
+
 def prompt_batch(cfg, rng, S):
     """lm.prefill's inputs for a random S-token prompt on the card: ids
     (1, S), codes (1, S, ncb) for the audio family, and for the vision
@@ -2570,6 +2750,18 @@ def main() -> int:
     paths["mesh"] = add_launches(*runs.values())
     log(f"[mesh path] kernel launches: {paths['mesh']} ({runs})")
     torch.cuda.empty_cache()
+
+    # the mesh families path: phase 22 on phase 17's plan over a new NCCL
+    # group, the SSD chunk on DTensors and then every family but dense
+    # trained on the mesh and without, each run's launches set to 0 just
+    # before it and read just after (in the phase)
+    with nccl_group():
+        from repro_torch.core import MeshRuntime
+        mesh = MeshRuntime().execute(plan.attachment())
+        runs = timed("mesh families", phase_mesh_families, mesh)
+        del mesh
+    paths["mesh_families"] = add_launches(*runs.values())
+    log(f"[mesh families path] kernel launches: {paths['mesh_families']} ({runs})")
 
     # the declarative paths, after the mesh path (they open and destroy
     # process groups of their own): phase 20 serves danube from a

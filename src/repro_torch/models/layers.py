@@ -23,16 +23,19 @@ CUDA tensors and take the plain version for CPU tensors.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.rmsnorm.ops import rmsnorm as rmsnorm_op
-from ..kernels.ssd_scan.ops import ssd_chunk
-from ..parallel.sharding import (constrain, current_rules, mesh_axis_sizes,
+from ..kernels.ssd_scan.ops import shard_layout, ssd_chunk
+from ..parallel.sharding import (constrain, current_rules, local_shard,
+                                 logical_to_pspec, mesh_axis_sizes, placements,
                                  replicated_like, whole_dims)
 from .config import ModelConfig
 from .modules import Builder, he_normal, normal_init, ones_init, zeros_init
@@ -519,21 +522,58 @@ def _route(cfg: ModelConfig, p: Params, xt: torch.Tensor) -> _Routing:
     return _Routing(logits, probs, ids, weights, onehot.sum(0), slot, slot < cap, cap)
 
 
+def _expert_shard(mesh: Any, E: int, cap: int, D: int) -> Tuple[int, int, list]:
+    """This rank's experts of the dispatch buffer (E,cap,D) under the
+    rules' ``"act_experts"`` axis: (first expert, count, the buffer's
+    placements). A mesh dim nests its shards inside those of earlier
+    dims, as DTensor lays a dim sharded over several mesh dims out."""
+    pl = placements(logical_to_pspec(("act_experts", None, None), current_rules(),
+                                     (E, cap, D)), mesh)
+    coord = mesh.get_coordinate()
+    first, n = 0, E
+    for i, q in enumerate(pl):
+        if q == Shard(0):
+            n //= mesh.size(i)
+            first += coord[i] * n
+    return first, n, pl
+
+
 def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B,S,D) -> (y, aux losses). Capacity-dropped top-k dispatch.
 
     No atomics and no host syncs: every kept choice has its own (expert,
     slot), so a plain ``index_put_`` into zeros gives the bits of JAX's
-    ``.at[].add``; dropped choices go to one spill row past the E*cap
-    expert rows, which is never read. The k choices of a token are
-    summed in choice order."""
+    ``.at[].add``; dropped choices go to one spill row past the expert
+    rows, which is never read. The k choices of a token are summed in
+    choice order.
+
+    Under a mesh every rank routes the whole batch (its rows and the
+    router gathered), so capacity, slots and drops are the unsharded
+    run's; each rank fills the buffer rows of its own experts
+    (``"act_experts"``), the expert products run on that sharded buffer,
+    and the output buffer is gathered for the combine, which every rank
+    computes whole. The routing, the combine and the aux losses come
+    back replicated."""
     B, S, D = x.shape
     E, k = cfg.num_experts, cfg.top_k
     cdt = cfg.compute_torch_dtype()
     T = B * S
-    xt = x.reshape(T, D)
-    r = _route(cfg, p, xt)
+    mesh = x.device_mesh if isinstance(x, DTensor) else None
+    first, n, pl_e = 0, E, None
+    router = p["router"]
+    if mesh is None:
+        xt = xd = x.reshape(T, D)
+    else:
+        rep = [Replicate()] * mesh.ndim
+        first, n, pl_e = _expert_shard(mesh, E, moe_capacity(cfg, T), D)
+        # the dispatch's copy of the rows: its gradient is this rank's
+        # experts' part, summed over the expert shards
+        summed = [Partial() if q == Shard(0) else Replicate() for q in pl_e]
+        xt = local_shard(x, mesh, rep).reshape(T, D)
+        xd = local_shard(x, mesh, rep, summed).reshape(T, D)
+        router = local_shard(router, mesh, rep)
+    r = _route(cfg, {"router": router}, xt)
     cap = r.cap
 
     # aux losses (Switch-style load balance + router z-loss), f32
@@ -543,12 +583,16 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor
     z_loss = torch.mean(torch.logsumexp(r.logits, dim=-1) ** 2) * cfg.router_z_loss
 
     flat = r.ids.reshape(-1)                                     # (T*k,)
-    tok = torch.arange(T, device=x.device).repeat_interleave(k)
-    spill = E * cap
-    dest = torch.where(r.keep, flat * cap + r.slot, torch.full_like(flat, spill))
-    buf = torch.zeros((spill + 1, D), dtype=cdt, device=x.device)
-    buf.index_put_((dest,), xt[tok].to(cdt))
-    eb = constrain(buf[:spill].view(E, cap, D), "act_experts", "moe_cap", None)
+    tok = torch.arange(T, device=xt.device).repeat_interleave(k)
+    spill = n * cap
+    mine = r.keep & (flat >= first) & (flat < first + n)
+    dest = torch.where(mine, (flat - first) * cap + r.slot, torch.full_like(flat, spill))
+    buf = torch.zeros((spill + 1, D), dtype=cdt, device=xt.device)
+    buf.index_put_((dest,), xd[tok].to(cdt))
+    eb = buf[:spill].view(n, cap, D)
+    if mesh is not None:
+        eb = DTensor.from_local(eb, mesh, pl_e, run_check=False)
+    eb = constrain(eb, "act_experts", "moe_cap", None)
 
     up = torch.einsum("ecd,edf->ecf", eb, p["w_up"].to(cdt))
     gate = torch.einsum("ecd,edf->ecf", eb, p["w_gate"].to(cdt))
@@ -558,7 +602,10 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor
         act = F.silu(gate) * up
     act = constrain(act, "act_experts", "moe_cap", None)
     out = torch.einsum("ecf,efd->ecd", act, p["w_down"].to(cdt))
-    out = constrain(out, "act_experts", "moe_cap", None).reshape(spill, D)
+    out = constrain(out, "act_experts", "moe_cap", None)
+    if mesh is not None:
+        out = local_shard(out, mesh, rep)
+    out = out.reshape(E * cap, D)
 
     src = flat * cap + torch.clamp(r.slot, max=cap - 1)
     gathered = out[src].masked_fill(~r.keep[:, None], 0)
@@ -567,6 +614,9 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor
     for j in range(1, k):
         y = y + gathered[:, j]
     y = y.reshape(B, S, D)
+    if mesh is not None:
+        y, lb_loss, z_loss = (DTensor.from_local(t, mesh, rep, run_check=False)
+                              for t in (y, lb_loss, z_loss))
     if cfg.dense_residual:
         y = y + mlp_apply(cfg, p["dense"], x)
     y = constrain(y, "batch", "seq", "act_embed")
@@ -629,6 +679,25 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b_: torch.Tensor) -> torch.Te
     return (out + b_.float()).to(x.dtype)
 
 
+def _batch_shards(fn, rows, whole):
+    """``fn(*rows, *whole)`` on each rank's batch shard: under a mesh the
+    ``rows`` tensors (batch leading) are placed by the rules' ``"batch"``
+    axis alone, whole in every other dim, and the ``whole`` tensors
+    replicated, their gradients partial sums over the batch's mesh dims;
+    every output (batch leading) comes back placed as the rows. Plain
+    tensors go to ``fn`` as they are."""
+    if not isinstance(rows[0], DTensor):
+        return fn(*rows, *whole)
+    mesh = rows[0].device_mesh
+    pl = placements(logical_to_pspec(("batch",) + (None,) * (rows[0].dim() - 1),
+                                     current_rules(), rows[0].shape), mesh)
+    summed = [Partial() if isinstance(q, Shard) else Replicate() for q in pl]
+    rep = [Replicate()] * mesh.ndim
+    out = fn(*(local_shard(t, mesh, pl) for t in rows),
+             *(local_shard(t, mesh, rep, summed) for t in whole))
+    return tuple(DTensor.from_local(t, mesh, pl, run_check=False) for t in out)
+
+
 def _ssd_in(cfg: ModelConfig, p: Params, x: torch.Tensor):
     """The five input projections in the compute dtype: x, z, B, C, dt."""
     cdt = cfg.compute_torch_dtype()
@@ -641,7 +710,48 @@ def _gated_out(cfg: ModelConfig, p: Params, y: torch.Tensor, z: torch.Tensor
     """rmsnorm(y * silu(z)) @ w_out, in the compute dtype."""
     cdt = cfg.compute_torch_dtype()
     y = rmsnorm(p["norm"], y.to(cdt) * F.silu(z), cfg.norm_eps)
-    return y @ p["w_out"].to(cdt)
+    return _rows(y) @ p["w_out"].to(cdt)
+
+
+def _ssd_chunks(cfg: ModelConfig, S: int, xs, Bm, Cm, dt, conv_w, conv_b,
+                dt_bias, a_log):
+    """The causal conv over [x | B | C] and its SiLU, dt's softplus and the
+    log-decays dA, padded to whole chunks of Q and cut into them: xh
+    (B,nc,Q,H,P), Bc and Cc (B,nc,Q,N) f32, dtc and dAc (B,nc,Q,H) f32,
+    and the conv's input (B,S,convC) for the serving cache."""
+    di, N, H, P = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_num_heads, cfg.ssm_head_dim
+    B = xs.shape[0]
+    Q = min(cfg.ssm_chunk, S)
+    pad = (-S) % Q
+    nc = (S + pad) // Q
+    conv_in = torch.cat([xs, Bm, Cm], dim=-1)
+    conv_out = F.silu(_causal_conv(conv_in, conv_w, conv_b))
+    xs, Bm, Cm = conv_out[..., :di], conv_out[..., di:di + N], conv_out[..., di + N:]
+
+    dt = F.softplus(dt.float() + dt_bias)                               # (B,S,H)
+    dA = dt * -torch.exp(a_log)                                          # log-decay
+
+    if pad:
+        xs, Bm, Cm, dt, dA = (F.pad(t, (0, 0, 0, pad)) for t in (xs, Bm, Cm, dt, dA))
+    return (xs.reshape(B, nc, Q, H, P),              # a strided view when unpadded
+            Bm.reshape(B, nc, Q, N).float(), Cm.reshape(B, nc, Q, N).float(),
+            dt.reshape(B, nc, Q, H), dA.reshape(B, nc, Q, H), conv_in)
+
+
+def _inter_chunk(Cc, dAc, y_diag, chunk_states, decays):
+    """The recurrence over the chunks' (B,H,N,P) states, a short loop, and
+    each chunk's output from the state it starts in: y (B,nc,Q,H,P) f32
+    and the final state."""
+    B, nc, H, N, P = chunk_states.shape
+    cum = torch.cumsum(dAc, dim=2)                                       # (B,nc,Q,H)
+    state = torch.zeros((B, H, N, P), dtype=torch.float32, device=Cc.device)
+    prev = []
+    for c in range(nc):
+        prev.append(state)
+        state = state * decays[:, c, :, None, None] + chunk_states[:, c]
+    prev_states = torch.stack(prev, dim=1)                               # (B,nc,H,N,P)
+    y_off = torch.einsum("bcqn,bchnp,bcqh->bcqhp", Cc, prev_states, torch.exp(cum))
+    return y_diag + y_off, state
 
 
 def ssd_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -650,45 +760,40 @@ def ssd_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
     The intra-chunk block (JAX ``layers.py:655-663``, written inline
     there) is one call of the SSD kernel's wrapper; the inter-chunk
-    recurrence over the chunks' (B,H,N,P) states stays a short loop."""
+    recurrence over the chunks' (B,H,N,P) states stays a short loop.
+
+    Under a mesh the conv and the chunking run on each rank's batch
+    shard, the sequence whole (the conv reads the k-1 rows before each
+    position); the heads then go on ``act_heads`` where they divide, and
+    the kernel's wrapper and the recurrence run on the local head shards
+    (:func:`..kernels.ssd_scan.ops.shard_layout`)."""
     B, S, _ = x.shape
-    di, N, H, P = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_num_heads, cfg.ssm_head_dim
-    Q = min(cfg.ssm_chunk, S)
-    pad = (-S) % Q
-    nc = (S + pad) // Q
+    di, H, P = cfg.ssm_d_inner, cfg.ssm_num_heads, cfg.ssm_head_dim
 
-    xs, z, Bm, Cm, dt = _ssd_in(cfg, p, x)
+    xs, z, Bm, Cm, dt = _ssd_in(cfg, p, _rows(x))
     xs = constrain(xs, "batch", "seq", "act_ff")
-    conv_in = torch.cat([xs, Bm, Cm], dim=-1)
-    conv_out = F.silu(_causal_conv(conv_in, p["conv_w"], p["conv_b"]))
-    xs, Bm, Cm = conv_out[..., :di], conv_out[..., di:di + N], conv_out[..., di + N:]
-
-    dt = F.softplus(dt.float() + p["dt_bias"])                          # (B,S,H)
-    A = -torch.exp(p["a_log"])                                           # (H,)
-    dA = dt * A                                                          # log-decay
-
-    if pad:
-        xs, Bm, Cm, dt, dA = (F.pad(t, (0, 0, 0, pad)) for t in (xs, Bm, Cm, dt, dA))
-
-    xh = xs.reshape(B, nc, Q, H, P)                  # a strided view when unpadded
-    Bc = Bm.reshape(B, nc, Q, N).float()
-    Cc = Cm.reshape(B, nc, Q, N).float()
-    dtc = dt.reshape(B, nc, Q, H)
-    dAc = dA.reshape(B, nc, Q, H)
+    xh, Bc, Cc, dtc, dAc, conv_in = _batch_shards(
+        functools.partial(_ssd_chunks, cfg, S), (xs, Bm, Cm, dt),
+        (p["conv_w"], p["conv_b"], p["dt_bias"], p["a_log"]))
+    xh = constrain(xh, "batch", None, None, "act_heads", None)
+    dtc = constrain(dtc, "batch", None, None, "act_heads")
+    dAc = constrain(dAc, "batch", None, None, "act_heads")
 
     y_diag, chunk_states, decays = ssd_chunk(Cc, Bc, xh, dtc, dAc)
-    cum = torch.cumsum(dAc, dim=2)                                       # (B,nc,Q,H)
-
-    state = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
-    prev = []
-    for c in range(nc):
-        prev.append(state)
-        state = state * decays[:, c, :, None, None] + chunk_states[:, c]
-    prev_states = torch.stack(prev, dim=1)                               # (B,nc,H,N,P)
-
-    y_off = torch.einsum("bcqn,bchnp,bcqh->bcqhp", Cc, prev_states, torch.exp(cum))
-    y = (y_diag + y_off).reshape(B, nc * Q, H, P)[:, :S]
-    y = y + xs.reshape(B, nc * Q, H, P)[:, :S].float() * p["d_skip"][:, None]
+    if isinstance(xh, DTensor):
+        mesh, lay = xh.device_mesh, shard_layout(xh)
+        y, state = _inter_chunk(local_shard(Cc, mesh, lay.cb, lay.cb_grad),
+                                *(local_shard(t, mesh, pl) for t, pl in (
+                                    (dAc, lay.x), (y_diag, lay.x),
+                                    (chunk_states, lay.heads), (decays, lay.heads))))
+        y = DTensor.from_local(y, mesh, lay.x, run_check=False)
+        state = DTensor.from_local(state, mesh, [Shard(1) if q == Shard(2) else q
+                                                 for q in lay.heads], run_check=False)
+    else:
+        y, state = _inter_chunk(Cc, dAc, y_diag, chunk_states, decays)
+    nq = xh.shape[1] * xh.shape[2]
+    y = y.reshape(B, nq, H, P)[:, :S]
+    y = y + xh.reshape(B, nq, H, P)[:, :S].float() * p["d_skip"][:, None]
     out = constrain(_gated_out(cfg, p, y.reshape(B, S, di), z),
                     "batch", "seq", "act_embed")
     if return_state:

@@ -33,7 +33,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
-from ..parallel.sharding import active_mesh, constrain, whole_dims
+from ..parallel.sharding import constrain, current_rules, use_rules, whole_dims
 from .config import ModelConfig
 from .layers import (_qkv, _rows, attention_apply, attention_decode,
                      attention_decode_paged, build_attention, build_mlp,
@@ -157,8 +157,10 @@ def _layer_body(cfg: ModelConfig, lp: Params, x: torch.Tensor,
                            Optional[Dict[str, torch.Tensor]]]:
     """One layer: the new x, its aux losses and, with ``return_state``,
     the SSD cache state that ``ssd_apply`` leaves after the sequence
-    (None without an SSD)."""
-    h = rmsnorm(lp["norm1"], x, cfg.norm_eps)
+    (None without an SSD). Under a mesh the normed rows' sequence is
+    gathered once for both mixers, so that their gradients meet in one
+    sum, in the order they meet without a mesh."""
+    h = _rows(rmsnorm(lp["norm1"], x, cfg.norm_eps))
     att = y_ssd = st = None
     if _has_ssd(cfg):
         if return_state:
@@ -202,10 +204,11 @@ def embed_tokens(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor]
     cdt = cfg.compute_torch_dtype()
     tokens = batch["tokens"].long()
     if cfg.frontend == "audio":                                  # (B,S,ncb)
-        x = torch.zeros(tokens.shape[:2] + (cfg.d_model,), dtype=cdt,
-                        device=tokens.device)
-        for c in range(cfg.num_codebooks):
-            x = x + p["embed"][c][tokens[..., c]].to(cdt)
+        # JAX sums the codebooks onto zeros; 0 + e is e, so the first
+        # codebook starts the sum (no plain zeros beside a DTensor)
+        x = _embed(p["embed"][0], tokens[..., 0]).to(cdt)
+        for c in range(1, cfg.num_codebooks):
+            x = x + _embed(p["embed"][c], tokens[..., c]).to(cdt)
     else:
         x = _embed(p["embed"], tokens).to(cdt)
     if cfg.frontend == "vision" and "patch_embeds" in batch:
@@ -222,7 +225,10 @@ def lm_head(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     cdt = cfg.compute_torch_dtype()
     x = _rows(x)
     if cfg.frontend == "audio":
-        logits = torch.einsum("bsd,cdv->bscv", x, p["head"].to(cdt))
+        # the product flattens (codebooks, vocab) of the head: its vocab
+        # dim is made whole first (torch 2.11's DTensor flattens sharded
+        # dims only where the sharded one leads)
+        logits = torch.einsum("bsd,cdv->bscv", x, whole_dims(p["head"], 2).to(cdt))
         return constrain(logits, "batch", "seq", None, "act_vocab")
     w = p["embed"].T if cfg.tie_embeddings else p["head"]
     logits = torch.einsum("bsd,dv->bsv", x, w.to(cdt))
@@ -269,28 +275,26 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Logits (B,S,V) (audio (B,S,ncb,V)) and the MoE aux losses. The
     layer bodies are checkpointed by ``remat`` only where a gradient is
-    being recorded; the values do not depend on it. Under a mesh only
-    the dense family runs: the others need DTensor work of their own
-    (the MoE dispatch, the SSD chunk, the frontends), a later slice."""
-    if active_mesh() is not None and (cfg.family != "dense" or cfg.frontend != "none"):
-        raise NotImplementedError(
-            f"forward under a mesh: the {cfg.family} family "
-            f"(frontend {cfg.frontend}) is not sharded yet; only dense runs")
+    being recorded; the values do not depend on it. Every family runs
+    under a mesh as without one."""
     x, positions = embed_tokens(cfg, params, batch)
+    # JAX sums the layers' aux losses onto zeros; the first layer's start
+    # the sum here (0 + v is v), so that no plain zero meets a DTensor
     aux_acc: Dict[str, torch.Tensor] = {}
-    if cfg.num_experts > 0:
-        aux_acc = {name: torch.zeros((), dtype=torch.float32, device=x.device)
-                   for name in ("load_balance", "router_z")}
+    rules = current_rules()
 
     def body(lp: Params, h: torch.Tensor):
-        return layer_apply(cfg, lp, h, positions, attention_impl)
+        # remat recomputes the body in the backward pass, which on CUDA
+        # runs on autograd's device thread: the rules go with the body
+        with use_rules(rules):
+            return layer_apply(cfg, lp, h, positions, attention_impl)
 
     if torch.is_grad_enabled():
         body = _remat(remat, body)
     for li in range(cfg.num_layers):
         x, aux = body(_layer(params["layers"], li), x)
         for name, v in aux.items():
-            aux_acc[name] = aux_acc[name] + v
+            aux_acc[name] = aux_acc[name] + v if name in aux_acc else v
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return lm_head(cfg, params, x), aux_acc
 
@@ -316,9 +320,12 @@ def train_loss(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     labels = batch["labels"]
     weights = batch.get("weights")
     if cfg.frontend == "vision":
-        # logits cover [img_tokens, text]; labels are text-only
-        logits = logits[:, logits.shape[1] - labels.shape[1]:]
+        # logits cover [img_tokens, text]; labels are text-only. Under a
+        # mesh the sequence is made whole before it is cut, and before
+        # the audio logits' (S, codebooks) are flattened
+        logits = whole_dims(logits, 1)[:, logits.shape[1] - labels.shape[1]:]
     if cfg.frontend == "audio":
+        logits = whole_dims(logits, 1)
         loss = cross_entropy(
             cfg, logits.reshape(logits.shape[0], -1, logits.shape[-1]),
             labels.reshape(labels.shape[0], -1),

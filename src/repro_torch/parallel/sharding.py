@@ -41,7 +41,8 @@ from ..tree import tree_map
 __all__ = ["ShardingRules", "use_rules", "current_rules", "active_mesh", "constrain",
            "logical_to_pspec", "placements", "param_shardings",
            "distribute_tree", "distribute_batch", "mesh_axis_sizes",
-           "replicated_like", "to_plain", "whole_dims", "BASE_RULES"]
+           "local_shard", "replicated_like", "to_plain", "whole_dims",
+           "BASE_RULES"]
 
 MeshAxes = Union[None, str, Tuple[str, ...]]
 Spec = Tuple[MeshAxes, ...]
@@ -282,6 +283,19 @@ def replicated_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
         mesh = like.device_mesh
         return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
     return t
+
+
+def local_shard(t: torch.Tensor, mesh: Any, pl: Sequence[Placement],
+                grad_pl: Optional[Sequence[Placement]] = None) -> torch.Tensor:
+    """This rank's shard of ``t`` once redistributed to ``pl`` on
+    ``mesh``, a plain tensor for code that runs on local shards (a plain
+    ``t`` is taken as the same value on every rank). Autograd takes the
+    shard's gradient as placed by ``grad_pl`` (default ``pl``): a value
+    that every rank uses whole beside other operands' shards gets a
+    ``Partial`` gradient over the mesh dims that shard them."""
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return t.redistribute(mesh, pl).to_local(grad_placements=grad_pl)
 
 
 def to_plain(t: torch.Tensor) -> torch.Tensor:

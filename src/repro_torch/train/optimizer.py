@@ -136,19 +136,25 @@ class Adafactor(Optimizer):
         beta2 = 1.0 - t ** (-self.decay)
 
         def upd(p, g, acc):
+            # each f32 temporary is dropped once used: a leaf's update
+            # holds at most four of them (grok's expert leaves: 6.4 GB each)
             g32 = g.to(F32)
             g2 = g32 * g32 + self.eps
             if "vr" in acc:
                 vr = beta2 * acc["vr"] + (1 - beta2) * g2.mean(dim=-1)
                 vc = beta2 * acc["vc"] + (1 - beta2) * g2.mean(dim=-2)
+                del g2
                 denom = (vr / torch.clamp(vr.mean(dim=-1, keepdim=True), min=self.eps)
                          )[..., None] * vc[..., None, :]
                 u = g32 * torch.rsqrt(torch.clamp(denom, min=self.eps))
+                del denom
                 new_acc = {"vr": vr, "vc": vc}
             else:
                 v = beta2 * acc["v"] + (1 - beta2) * g2
+                del g2
                 u = g32 * torch.rsqrt(torch.clamp(v, min=self.eps))
                 new_acc = {"v": v}
+            del g32
             rms = torch.sqrt(torch.mean(u * u))
             u = u / torch.clamp(rms / self.clip_threshold, min=1.0)
             p32 = p.to(F32)

@@ -522,15 +522,80 @@ def test_flash_on_a_dtensor_launches_the_kernel(nccl_mesh, dtype):
 
 
 @pytest.mark.gpu
-def test_ssd_chunk_on_a_dtensor_raises(nccl_mesh):
-    from torch.distributed.tensor import Replicate, distribute_tensor
-    shapes = [(1, 2, 16, 8), (1, 2, 16, 8), (1, 2, 16, 2, 8), (1, 2, 16, 2), (1, 2, 16, 2)]
-    ins = [distribute_tensor(torch.zeros(s, device="cuda"), nccl_mesh,
-                             [Replicate(), Replicate()]) for s in shapes]
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_on_a_dtensor_launches_the_kernel(nccl_mesh, dtype):
+    """One launch on the local shards, at mamba2's prefill shape and its
+    init's decays: outputs within the model-shape bound of the plain
+    version, and the gradients (the plain version's backward on both
+    sides) as well."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+    C, B, x, dt, da = ssd_inputs("cuda", 1, 2, 256, 128, 48, 64, model_like=True, seed=7)
+    ins = [t.requires_grad_(True) for t in (C, B, x.to(dtype), dt, da)]
+    g = torch.Generator(device="cuda").manual_seed(8)
+    gs = [torch.randn(s, device="cuda", generator=g)
+          for s in ((1, 2, 256, 48, 64), (1, 2, 48, 128, 64), (1, 2, 48))]
+    pls = [[Shard(0), Replicate()]] * 2 + [[Shard(0), Shard(3)]] * 3
+    dins = [distribute_tensor(t.detach(), nccl_mesh, pl).requires_grad_(True)
+            for t, pl in zip(ins, pls)]
     before = launch_counts()["ssd_chunk"]
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ssd_chunk(*ins)
-    assert launch_counts()["ssd_chunk"] == before
+    out = ssd_chunk(*dins)
+    torch.cuda.synchronize()
+    assert launch_counts()["ssd_chunk"] == before + 1
+    assert all(isinstance(o, DTensor) and o.device.type == "cuda" for o in out)
+    torch.autograd.backward([o.to_local() for o in out], gs)
+    ref = ssd_chunk_ref(*ins)
+    want = torch.autograd.grad(ref, ins, gs)
+    for got, w in list(zip(out, ref)) + [(d.grad, w) for d, w in zip(dins, want)]:
+        got = got.to_local().detach().float()
+        w = w.detach().float()
+        # decays underflow to 0 at these decays: the bound is relative to
+        # each output's largest magnitude where it has one
+        assert float((got - w).abs().max()) <= 1e-3 * max(float(w.abs().max()), 1e-30)
+
+
+@pytest.mark.gpu
+def test_moe_apply_under_a_mesh_is_bit_equal_on_the_card(nccl_mesh):
+    """Smoke grok-1-314b's MoE block in bf16 at a capacity where choices
+    are dropped: on the 1 x 1 mesh (every rank routes the whole batch,
+    fills its experts' rows, gathers the output buffer) its output, aux
+    losses and drop count are those without the mesh, bit for bit."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.models import layers, lm
+    from repro_torch.parallel.sharding import (ShardingRules, distribute_tree,
+                                               param_shardings, placements,
+                                               logical_to_pspec, use_rules)
+    cfg = smoke_config("grok-1-314b").replace(capacity_factor=1.0)
+    p = lm.init_params(cfg, 0, "cuda")["layers"]["moe"]
+    p = {k: v[0] for k, v in p.items()}
+    x = torch.randn(8, 32, cfg.d_model, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(4)).to(torch.bfloat16)
+    drops = []
+    route = layers._route
+
+    def counting(cfg_, p_, xt):
+        r = route(cfg_, p_, xt)
+        drops.append(int((~r.keep).sum()))
+        return r
+
+    layers._route = counting
+    try:
+        want, want_aux = layers.moe_apply(cfg, p, x)
+        rules = ShardingRules(mesh=nccl_mesh)
+        with use_rules(rules):
+            specs = lm.param_specs(cfg)["layers"]["moe"]
+            specs = {k: v[1:] for k, v in specs.items()}
+            pd = distribute_tree(p, param_shardings(specs, rules, p), nccl_mesh)
+            xd = distribute_tensor(x, nccl_mesh, placements(
+                logical_to_pspec(("batch", "seq", "act_embed"), rules, x.shape), nccl_mesh))
+            got, aux = layers.moe_apply(cfg, pd, xd)
+    finally:
+        layers._route = route
+    assert isinstance(got, DTensor) and got.device.type == "cuda"
+    assert torch.equal(got.full_tensor(), want)
+    for name, v in want_aux.items():
+        assert torch.equal(aux[name].full_tensor(), v), name
+    assert len(drops) == 2 and drops[0] == drops[1] > 0
 
 
 # ---------------------------------------------------------------------------

@@ -553,7 +553,7 @@ def test_sharded_training_matches_unsharded_and_jax(four_ranks):
 
 
 # ---------------------------------------------------------------------------
-# One rank: what a mesh refuses
+# One rank: every family under a 1 x 1 mesh
 # ---------------------------------------------------------------------------
 
 @pytest.fixture
@@ -569,19 +569,37 @@ def mesh_1x1(tmp_path):
 
 @pytest.mark.parametrize("arch", ["arctic-480b", "mamba2-780m", "hymba-1.5b",
                                   "internvl2-1b", "musicgen-medium"])
-def test_forward_refuses_other_families_under_a_mesh(arch, mesh_1x1):
-    cfg = smoke_config(arch)
-    with tshard.use_rules(tshard.ShardingRules(mesh=mesh_1x1)):
-        with pytest.raises(NotImplementedError, match="only dense runs"):
-            lm.forward(cfg, {}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+def test_forward_under_a_mesh_is_bit_equal(arch, mesh_1x1):
+    """The logits and aux losses of ``forward`` on the 1 x 1 mesh (every
+    parameter and batch tensor a DTensor) are those without it, bit for
+    bit."""
+    from repro_torch.data.pipeline import SyntheticLMData
+    cfg = smoke_config(arch).replace(param_dtype="float32", compute_dtype="float32")
+    params = lm.init_params(cfg, 0, "cpu")
+    batch = {k: torch.from_numpy(v) for k, v in SyntheticLMData(cfg, 4, 32).batch(0).items()}
+    want, want_aux = lm.forward(cfg, params, batch, "kernel")
+    rules = tshard.ShardingRules(mesh=mesh_1x1)
+    with tshard.use_rules(rules):
+        sharded = tshard.distribute_tree(params, tshard.param_shardings(
+            lm.param_specs(cfg), rules, lm.abstract_params(cfg)), mesh_1x1)
+        got, aux = lm.forward(cfg, sharded, tshard.distribute_batch(batch, rules), "kernel")
+    assert isinstance(got, torch.distributed.tensor.DTensor)
+    assert torch.equal(got.full_tensor(), want)
+    assert sorted(aux) == sorted(want_aux) == (
+        ["load_balance", "router_z"] if cfg.num_experts else [])
+    for name, v in aux.items():
+        assert torch.equal(tshard.to_plain(v), want_aux[name]), name
 
 
-def test_ssd_chunk_refuses_a_dtensor(mesh_1x1):
-    from torch.distributed.tensor import Replicate, distribute_tensor
+def test_ssd_chunk_on_a_dtensor_equals_plain(mesh_1x1):
+    from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
     from repro_torch.kernels.ssd_scan.ops import ssd_chunk
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref
     b, nc, Q, N, H, P = 1, 2, 4, 4, 2, 4
     shapes = [(b, nc, Q, N), (b, nc, Q, N), (b, nc, Q, H, P), (b, nc, Q, H), (b, nc, Q, H)]
-    ins = [distribute_tensor(torch.zeros(s), mesh_1x1, [Replicate(), Replicate()])
-           for s in shapes]
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ssd_chunk(*ins)
+    plain = [torch.tensor(np.random.RandomState(i).randn(*s), dtype=torch.float32)
+             for i, s in enumerate(shapes)]
+    plain[4] = -plain[3].abs()
+    ins = [distribute_tensor(t, mesh_1x1, [Replicate(), Replicate()]) for t in plain]
+    for got, want in zip(ssd_chunk(*ins), ssd_chunk_ref(*plain)):
+        assert isinstance(got, DTensor) and torch.equal(got.full_tensor(), want)

@@ -18,9 +18,12 @@ width and 1 layer on it, serves and trains h2o-danube-1.8b at
 full size through the launchers' control-plane flags (a reconciled
 replica set; a mesh the AttachmentController built, both with
 ``--obs-dir``), measures what the observability and control planes
-cost h2o-danube-1.8b's host-bound serving, and round-trips a full-width
-checkpoint of the sharded state through the train launcher, with random
-weights from a seed, in phases (each logs its seconds):
+cost h2o-danube-1.8b's host-bound serving, round-trips a full-width
+checkpoint of the sharded state through the train launcher, re-plans an
+elastic job after a node failure (gloo ranks on the CPU that shrink from
+four to two; h2o-danube-1.8b at full width resuming on the card) and
+serves h2o-danube-1.8b at full size on the legacy fixed-width engine,
+with random weights from a seed, in phases (each logs its seconds):
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc for the three CUDA libraries (RMSNorm, flash attention,
@@ -144,12 +147,36 @@ weights from a seed, in phases (each logs its seconds):
      saved, the resumed losses equal within 1e-6, ``store.json`` loading
      into a store with the saved fingerprint; logs the codec, bytes, the
      gather's, snapshot's, write's and both restores' seconds;
-  11. the kernels line: launches on the thirteen paths, in this order
+  23. elastic: (a) on this machine's CPU by design (one card holds one
+     NCCL rank, so no card runs a mesh that shrinks), smoke danube in f32
+     on four gloo ranks of the (4, 1) plan of a (x=1, y=4) pod until
+     FaultInjector(fail_at=5) stops them, NODE_FAILED on the
+     ElasticController's bus, two new gloo ranks on the re-planned (2, 1)
+     mesh resuming the step-3 checkpoint: stop results, meshes, resumed
+     step, losses within 1e-4 of the unsharded port; (b) on the card,
+     danube at full width and ELASTIC_LAYERS layers under the controller
+     (threaded informer, node plane) sharing the trainer's bus: the stop,
+     the (2, 1) re-plan, the claim re-allocated and prepared, JOB_RESUMED
+     once, a new Trainer resuming at step 3 whose steps 4-5 are bit-equal
+     to an uninterrupted run's; NODE_FAILED to the re-planned Ready and
+     the restore seconds (checkpoint at zlib level
+     ELASTIC_COMPRESS_LEVEL);
+  24. legacy serve: the legacy fixed-width engine on danube, in f32 at
+     LEGACY_F32_LAYERS layers (first-token logits vs lm.prefill within
+     2e-3) and in bf16 at full size: the recycled-slot contamination
+     against the ServeEngine, ``submit([])`` raising IndexError at run
+     time, ``run(max_steps=3)`` returning [], and tokens/s and ms per tick
+     beside the ServeEngine's on the same prompts and slots (one run each
+     at a toy load: logged, no claim); the ServeEngine's runs are a path
+     of their own;
+  11. the kernels line: launches on the sixteen paths, in this order
      (phases 5-6, the dense path; 6b, plane cost; 7-7c, the moe path;
      10-10b, the hybrid
      path; 12-12b, vision; 13-13b, audio; 14-14b, train; 15, trainer;
      8-9, the ssm path; 17-19, mesh; 22, mesh families; 20, knd serve;
-     21 and 16, knd train), each path's counts set to 0 just before it
+     21 and 16, knd train; 23, elastic; 24, legacy and legacy vs serve),
+     each path's counts
+     set to 0 just before it
      (the mesh and mesh families paths: before each of their runs) and
      read just after and checked, and
      each kernel's time at its
@@ -195,10 +222,10 @@ AUDIO_ARCH = "musicgen-medium"
 FRONTEND_F32_LAYERS = 2            # the frontends' and the training f32 checks
 TRAIN_STEPS = 4                    # internvl2-1b's bf16 steps at full size
 TRAIN_LAUNCH_STEPS = 4             # the train launcher's steps, danube at full size
-# the checkpoint phase: danube at full width and 2 layers (302.8 M
-# parameters, 3.03 GB of state with AdamW's); a full-depth save is 18.3 GB
-# through one compression thread
-CKPT_LAYERS = 2
+# the checkpoint phase: danube at full width and 1 layer (233.3 M
+# parameters, 2.33 GB of state with AdamW's; cut for the script's time); a
+# full-depth save is 18.3 GB through one compression thread
+CKPT_LAYERS = 1
 CKPT_EVERY, CKPT_FIT = 3, 5        # one save, at step 3, in a fit of 5 steps
 CKPT_DIR = os.path.join(ROOT, "build", "chip_smoke_ckpt")
 KND_SERVE_DIR = os.path.join(ROOT, "build", "chip_smoke_knd_serve")   # state dirs
@@ -207,6 +234,17 @@ KND_OBS_DIR = os.path.join(ROOT, "build", "chip_smoke_obs")   # --obs-dir artifa
 KND_REQUESTS = 4                   # the declarative serve path's requests
 KND_STEPS = 2                      # the declarative train path's steps per run
 MESH_STEPS = 3                     # danube's steps on the planned mesh, and without
+# phase 23: elastic re-planning. (b) trains danube at full width and 1 of
+# 24 layers on the card, its checkpoint written with zlib level 0 (stored:
+# a save and a restore cost copies, not compression); (a) runs the gloo
+# ranks on the CPU
+ELASTIC_LAYERS = 1
+ELASTIC_COMPRESS_LEVEL = 0
+ELASTIC_FAIL_AT, ELASTIC_CKPT_EVERY = 5, 3
+ELASTIC_DIR = os.path.join(ROOT, "build", "chip_smoke_elastic")
+# phase 24: the legacy engine; its f32 check's depth, its baseline's requests
+LEGACY_F32_LAYERS = 2
+LEGACY_REQUESTS = 4
 # phase 22: (arch, layers (None: all), optimizer), each MESH_FAMILY_STEPS
 # steps on the planned mesh and as many without. grok at 1 layer is 6.53 B
 # parameters: 13.1 GB in bf16 and as much again in gradients; AdamW's f32
@@ -221,7 +259,7 @@ FRONTEND_REQUESTS = 4              # the frontends' serving requests
 # and enough, as device time per tick moves by under 2 % between runs
 PROFILE_TICKS = 4
 PLANE_COST_ARMS = "ABCD"           # [plane cost]: the arms, rotated one place per round
-PLANE_COST_ROUNDS = 3
+PLANE_COST_ROUNDS = 2                 # few, for the script's time
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
@@ -2576,6 +2614,413 @@ def prefill_timing(cfg, params, toks) -> dict:
             "ssd_share_of_device": ssd_ms / device, "ssd_share_of_ms": ssd_ms / ms}
 
 
+def elastic_controller(use_node_plane):
+    """An ElasticController (threaded informer) on the (x=1, y=4) pod with
+    model_axis 1: a (4, 1) mesh, (2, 1) on the survivors of a host."""
+    from repro_torch.core import DriverRegistry, IciDriver, TpuDriver
+    from repro_torch.launch.elastic import ElasticController
+    from repro_torch.topology.tpu import TpuPodSpec, build_tpu_cluster
+    cluster = build_tpu_cluster(1, TpuPodSpec(x=1, y=4))
+    reg = DriverRegistry()
+    reg.add(TpuDriver(cluster)).add(IciDriver(cluster))
+    reg.run_discovery()
+    return ElasticController(cluster, reg, model_axis=1, use_node_plane=use_node_plane)
+
+
+def phase_elastic_ranks():
+    """Phase 23(a), on this machine's CPU by design (no card runs a mesh
+    that shrinks: one card holds one NCCL rank): the tier-1 test's
+    elastic run without JAX. Smoke h2o-danube-1.8b in f32 from the port's
+    own init (seed 0), data 8 x 32, AdamW at 1e-3, remat dots: four
+    gloo ranks on the (4, 1) plan train until FaultInjector(fail_at=5)
+    stops every rank, with a checkpoint at step 3; NODE_FAILED re-plans
+    (2, 1) on the surviving host, and two new gloo ranks restore step 3
+    onto the new mesh and train 3 more steps. Checks the stop results,
+    both meshes, the resumed step, every rank's losses equal, the resumed
+    step 4 equal to the failed run's, and every step's loss within 1e-4
+    relative of the unsharded port's on this CPU."""
+    import shutil
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch import elastic
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.schedule import constant_schedule
+    from repro_torch.train.train_step import StepConfig
+    from repro_torch.train.trainer import Trainer
+    work = os.path.join(ELASTIC_DIR, "ranks")
+    shutil.rmtree(work, ignore_errors=True)
+    f32 = {"param_dtype": "float32", "compute_dtype": "float32"}
+    job = {"arch": ARCH, "overrides": f32, "batch": 8, "seq": 32,
+           "steps": 10, "ckpt_dir": os.path.join(work, "ckpt"),
+           "ckpt_every": ELASTIC_CKPT_EVERY}
+    ctl = elastic_controller(False)
+    try:
+        t0 = time.perf_counter()
+        out = elastic._train_elastic(ctl, job, work, fail_at=ELASTIC_FAIL_AT,
+                                     resume_steps=3)
+        seconds = time.perf_counter() - t0
+        claim = (ctl.claim.allocated, ctl.claim.prepared)
+    finally:
+        ctl.close()
+    check(out["shapes"] == [[4, 1], [2, 1]] and claim == (True, True),
+          f"elastic ranks: plans {out['plans']}, claim {claim}")
+    first, surv = out["first"], out["survivors"]
+    check(len(first) == 4 and all(
+        r["result"] == {"stopped_at": ELASTIC_FAIL_AT, "reason": "node_failure"}
+        and r["world"] == 4 and r["all_dtensor"] and r["resumed_from"] is None
+        and r["mesh"] == [["data", "model"], [[0], [1], [2], [3]]]
+        and r["steps"] == list(range(ELASTIC_FAIL_AT)) for r in first),
+        f"elastic ranks, the failed run: {first}")
+    check(len(surv) == 2 and all(
+        r["resumed_from"] == ELASTIC_CKPT_EVERY and r["result"]["completed"] >= 6
+        and r["world"] == 2 and r["all_dtensor"]
+        and r["mesh"] == [["data", "model"], [[0], [1]]] and r["steps"] == [4, 5, 6]
+        for r in surv), f"elastic ranks, the survivors: {surv}")
+    for runs in (first, surv):
+        check(all(r["losses"] == runs[0]["losses"] for r in runs),
+              "elastic ranks: the ranks' losses differ")
+    check(surv[0]["losses"][0] == first[0]["losses"][4],
+          "elastic ranks: the resumed step 4 is not the failed run's")
+    cfg = smoke_config(ARCH).replace(**f32)
+    plain = Trainer(cfg, AdamW(constant_schedule(1e-3)), SyntheticLMData(cfg, 8, 32),
+                    step_cfg=StepConfig(remat="dots"), device="cpu")
+    plain.init(0)
+    plain.fit(7)
+    want = [h["loss"] for h in plain.history]
+    got = first[0]["losses"] + surv[0]["losses"][1:]
+    rel = rel_diffs(got, want)
+    check(len(got) == 7 and max(rel) <= 1e-4,
+          f"elastic ranks vs the unsharded port: {got} vs {want} (rel {rel})")
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"[elastic ranks] on the CPU (gloo ranks; no card runs a shrinking mesh): "
+        f"{json.dumps({'plans': out['plans'], 'failed_node': out['node'], 'replan_s': out['replan_s'], 'losses': got, 'rel_to_unsharded': rel, 'seconds': seconds})}")
+
+
+def phase_elastic_card():
+    """Phase 23(b): h2o-danube-1.8b at full width and ELASTIC_LAYERS
+    layers trains on the card under an ElasticController with the
+    threaded informer and the node plane, on the (x=1, y=4) pod with
+    model_axis 1 (its 4- and 2-rank meshes are not executed here: phase
+    23(a) runs them). The trainer's bus is the controller's, as in the
+    JAX package's end-to-end test: FaultInjector(fail_at=5) on a host of
+    the plan stops fit, the controller evicts the host through its lease
+    and re-plans (2, 1) on the same thread. A checkpoint at step 3 with
+    ``compress_level`` ELASTIC_COMPRESS_LEVEL. Checks the stop result, the
+    plan, the claim re-allocated and prepared, JOB_RESUMED published once
+    with the new plan and no handler failed; then a new Trainer on the
+    card resumes at step 3 and trains 2 steps, and an uninterrupted run
+    trains 6: the resumed steps 4-5 are bit-equal to it, as are the failed
+    run's steps 0-4. Logs NODE_FAILED to the re-planned Ready, the restore
+    seconds and the checkpoint's bytes. Returns the launches: per step 2L
+    flash and 4L+1 RMSNorm (remat dots), 5 + 2 + 6 steps."""
+    import shutil
+    import torch
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.nri import Events
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch import elastic
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.schedule import constant_schedule
+    from repro_torch.train.train_step import StepConfig
+    from repro_torch.train.trainer import FaultInjector, Trainer
+    cfg = get_config(ARCH).replace(num_layers=ELASTIC_LAYERS)
+    work = os.path.join(ELASTIC_DIR, "card")
+    shutil.rmtree(work, ignore_errors=True)
+    data = SyntheticLMData(cfg, 8, 64)
+    sc = StepConfig(remat="dots", attention_impl="kernel")
+    manager = ckpt.CheckpointManager(work, compress_level=ELASTIC_COMPRESS_LEVEL)
+
+    def trainer(**kw):
+        return Trainer(cfg, AdamW(constant_schedule(1e-3)), data, step_cfg=sc,
+                       device=DEVICE, **kw)
+
+    marks, resumed_events = {}, []
+    ctl = elastic_controller(True)
+    try:
+        plan = ctl.plan_mesh()
+        check(plan.axis_shape == (4, 1), f"elastic card: first plan {plan.summary()}")
+        node = elastic._plan_host(ctl, plan)
+        failed = trainer(ckpt=manager, ckpt_every=ELASTIC_CKPT_EVERY,
+                         drivers=[FaultInjector(fail_at=ELASTIC_FAIL_AT, node=node)])
+        ctl.registry.bus = failed.bus
+        failed.bus.subscribe(Events.NODE_FAILED,
+                             lambda e: marks.setdefault("failed", time.perf_counter()),
+                             "chip_smoke")
+        failed.bus.subscribe(Events.NODE_FAILED, ctl.on_node_failed, "elastic")
+        failed.bus.subscribe(Events.JOB_RESUMED, lambda e: (
+            resumed_events.append(e.context),
+            marks.setdefault("ready", time.perf_counter())), "chip_smoke")
+        failed.init(SEED)
+        out = failed.fit(10)
+        manager.wait()
+        check(out == {"stopped_at": ELASTIC_FAIL_AT, "reason": "node_failure"},
+              f"elastic card: fit returned {out}")
+        check(not failed.bus.failures(),
+              f"elastic card: a handler failed: {failed.bus.failures()}")
+        check(ctl.mesh_shape == (2, 1) and node not in ctl.registry.pool.nodes(),
+              f"elastic card: re-planned {ctl.mesh_shape}, pool {ctl.registry.pool.nodes()}")
+        check(ctl.claim.allocated and ctl.claim.prepared,
+              "elastic card: the claim was not re-allocated and prepared")
+        check(len(resumed_events) == 1 and resumed_events[0]["plan"].axis_shape == (2, 1)
+              and resumed_events[0]["reason"] == f"lost {node}",
+              f"elastic card: JOB_RESUMED {resumed_events}")
+        events = list(ctl.events)
+    finally:
+        ctl.close()
+    failed_losses = [h["loss"] for h in failed.history]
+    del failed
+    free_cuda()
+    step_dir = os.path.join(work, f"step_{ELASTIC_CKPT_EVERY:08d}")
+    with open(os.path.join(step_dir, "manifest.json")) as f:
+        manifest = json.load(f)
+    resumed = trainer(ckpt=manager)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = resumed.resume()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(step == ELASTIC_CKPT_EVERY, f"elastic card: resumed at step {step}")
+    resumed.fit(2)
+    got = [(h["step"], h["loss"]) for h in resumed.history]
+    del resumed
+    free_cuda()
+    whole = trainer()
+    whole.init(SEED)
+    whole.fit(6)
+    want = [h["loss"] for h in whole.history]
+    del whole
+    free_cuda()
+    check(got == [(4, want[4]), (5, want[5])] and failed_losses == want[:5],
+          f"elastic card: resumed {got}, failed {failed_losses}, uninterrupted {want}")
+    report = {"arch": cfg.name, "layers": ELASTIC_LAYERS, "params": cfg.param_count(),
+              "failed_node": node, "events": events,
+              "node_failed_to_ready_ms": 1e3 * (marks["ready"] - marks["failed"]),
+              "restore_s": restore_s, "codec": manifest["codec"],
+              "compress_level": ELASTIC_COMPRESS_LEVEL,
+              "disk_bytes": os.path.getsize(os.path.join(step_dir, ckpt.SHARD)),
+              "losses_failed": failed_losses, "losses_resumed": got,
+              "losses_uninterrupted": want}
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"[elastic card] {json.dumps(report)}")
+    steps = ELASTIC_FAIL_AT + 2 + 6
+    L = ELASTIC_LAYERS
+    return {"flash_attention": steps * 2 * L, "ssd_chunk": 0,
+            "rmsnorm": steps * (4 * L + 1)}
+
+
+def legacy_ticks(eng) -> int:
+    """A legacy engine's ticks: one decode_step, and one clock step, each."""
+    return int(eng.cache["pos"])
+
+
+def phase_legacy_f32(rng):
+    """Phase 24, f32: danube at full width and LEGACY_F32_LAYERS layers.
+    The legacy engine's first-token logits for a 64-token prompt (fed
+    token by token) vs lm.prefill's last-position logits (dense
+    attention), rel <= 2e-3 (``tests/test_decode.py:46``), and its first
+    greedy token. Returns the launches: 3L+1 RMSNorm for the prefill, 2L+1
+    per engine tick."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve.legacy import LegacyServeEngine
+    cfg = get_config(ARCH).replace(num_layers=LEGACY_F32_LAYERS, param_dtype="float32",
+                                   compute_dtype="float32")
+    params = lm.init_params(cfg, SEED, DEVICE)
+    S = 64
+    prompt = rng.randint(0, cfg.vocab_size, size=S).tolist()
+    with torch.no_grad():
+        lk, _ = lm.prefill(cfg, params, {"tokens": torch.tensor([prompt], device=DEVICE)},
+                           attention_impl="dense")
+        eng = LegacyServeEngine(cfg, params, batch_slots=2, max_len=S + 16, seed=SEED,
+                                device=DEVICE)
+        seen = []
+        decode = eng._decode
+
+        def captured(*args):
+            logits, cache = decode(*args)
+            seen.append(logits)
+            return logits, cache
+
+        eng._decode = captured
+        r = eng.submit(prompt, max_new_tokens=4)
+        eng.run()
+    err = rel_err(seen[S - 1][0, 0], lk[0, 0])
+    check(r.done and err <= 2e-3,
+          f"legacy f32: first-token logits vs prefill rel err {err} > 2e-3")
+    check(r.generated[0] == int(lk[0, 0].argmax()), "legacy f32: first greedy token differs")
+    ticks = legacy_ticks(eng)
+    log(f"[legacy f32] {cfg.num_layers} layers: first-token logits vs lm.prefill rel err "
+        f"{err:.3g}; {ticks} ticks")
+    del params, eng, seen
+    free_cuda()
+    L = cfg.num_layers
+    return {"flash_attention": 0, "ssd_chunk": 0,
+            "rmsnorm": 3 * L + 1 + ticks * (2 * L + 1)}
+
+
+def phase_legacy_bf16(rng):
+    """Phase 24, bf16: danube at full width and depth on the legacy
+    engine alone. (1) The recycled-slot bug's runs: through one slot, a
+    48-token request A then an 8-token request B, and B alone through a
+    fresh legacy engine; B's first-token logits of both. (2)
+    ``submit([])`` is accepted and ``run()`` raises IndexError. (3)
+    ``run(max_steps=3)`` with two 20-token requests on one slot returns
+    []. (4) The baseline's legacy arm: LEGACY_REQUESTS requests (prompts
+    of 16-64 tokens, 16 new, 4 slots). Returns the launches, 2L+1 RMSNorm
+    per legacy tick, and what :func:`phase_legacy_vs_serve` compares."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve.legacy import LegacyServeEngine
+    cfg = get_config(ARCH)
+    check(cfg.param_dtype == "bfloat16", "the legacy engine serves danube in bf16")
+    params = lm.init_params(cfg, SEED, DEVICE)
+    a = rng.randint(0, cfg.vocab_size, size=48).tolist()
+    b = rng.randint(0, cfg.vocab_size, size=8).tolist()
+    ticks = 0
+
+    def legacy(slots, max_len=128):
+        return LegacyServeEngine(cfg, params, batch_slots=slots, max_len=max_len,
+                                 seed=SEED, device=DEVICE)
+
+    def legacy_first(eng, prompt_ticks):
+        """Run a one-slot legacy engine; the logits of its tick
+        ``prompt_ticks - 1``, where the last request's first token is
+        sampled."""
+        seen = []
+        decode = eng._decode
+
+        def captured(*args):
+            logits, cache = decode(*args)
+            seen.append(logits)
+            return logits, cache
+
+        eng._decode = captured
+        eng.run()
+        return seen[prompt_ticks - 1][0, 0].float()
+
+    with torch.no_grad():
+        rec = legacy(1)
+        ra = rec.submit(a, max_new_tokens=8)
+        rb = rec.submit(b, max_new_tokens=8)
+        b_recycled = legacy_first(rec, len(a) + 8 - 1 + len(b))
+        ticks += legacy_ticks(rec)
+        fresh_leg = legacy(1)
+        fresh_leg.submit(b, max_new_tokens=1)
+        b_fresh_legacy = legacy_first(fresh_leg, len(b))
+        ticks += legacy_ticks(fresh_leg)
+    check(ra.done and rb.done, "legacy bf16: a request did not complete")
+
+    empty = legacy(2)
+    r = empty.submit([], max_new_tokens=4)
+    check(empty.pending == [r], "legacy bf16: submit([]) was not accepted")
+    try:
+        with torch.no_grad():
+            empty.run()
+        raised = False
+    except IndexError:
+        raised = True
+    check(raised, "legacy bf16: run() after submit([]) did not raise IndexError")
+    ticks += legacy_ticks(empty)
+
+    capped = legacy(1)
+    capped.submit(a, max_new_tokens=20)
+    capped.submit(b, max_new_tokens=20)
+    with torch.no_grad():
+        got = capped.run(max_steps=3)
+    check(got == [] and legacy_ticks(capped) == 3,
+          f"legacy bf16: run(max_steps=3) returned {got}")
+    ticks += legacy_ticks(capped)
+
+    lens = rng.randint(16, 65, size=LEGACY_REQUESTS)
+    prompts = [rng.randint(0, cfg.vocab_size, size=int(n)).tolist() for n in lens]
+    eng = legacy(4)
+    base = baseline_arm(eng, prompts, legacy_ticks, "legacy")
+    ticks += base["ticks"]
+    run = {"cfg": cfg, "params": params, "a": a, "b": b, "lens": lens, "prompts": prompts,
+           "b_recycled": b_recycled, "b_fresh_legacy": b_fresh_legacy,
+           "recycled_b_tokens": rb.generated, "legacy": base}
+    return {"flash_attention": 0, "ssd_chunk": 0,
+            "rmsnorm": ticks * norms_per_tick(cfg, 1)}, run
+
+
+def baseline_arm(eng, prompts, ticks_of, name):
+    """One arm of the legacy baseline (no claim): ``prompts``, 16 new
+    tokens each, through ``eng``; its ticks, wall seconds and tokens/s."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        reqs = [eng.submit(p, max_new_tokens=16) for p in prompts]
+        eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(all(q.done for q in reqs), f"legacy bf16: {name} left a request unfinished")
+    n = ticks_of(eng)
+    gen = sum(len(q.generated) for q in reqs)
+    return {"ticks": n, "wall_s": wall, "generated_tokens": gen,
+            "tokens_per_s": gen / wall, "ms_per_tick": 1e3 * wall / n}
+
+
+def phase_legacy_vs_serve(run):
+    """Phase 24, the ServeEngine (chunk 16) beside the legacy engine, on
+    phase_legacy_bf16's weights and prompts: B alone through a fresh
+    ServeEngine, A then B through one recycled slot, and the baseline's
+    load on 4 slots. The legacy engine's recycled B must be further than
+    3x the two fresh paths' bf16 difference from the fresh ServeEngine's
+    first-token logits, and the ServeEngine's recycled slot must give B
+    its fresh tokens. Logs both arms of the baseline: one run each at a
+    toy load, no claim. Returns the launches, 2L+1 RMSNorm per
+    ServeEngine tick."""
+    import torch
+    from repro_torch.serve.engine import ServeEngine
+    cfg, params, a, b = run["cfg"], run["params"], run["a"], run["b"]
+
+    def serve(slots, max_len=128):
+        return ServeEngine(cfg, params, batch_slots=slots, max_len=max_len,
+                           prefill_chunk=16, seed=SEED, device=DEVICE)
+
+    with torch.no_grad():
+        fresh = serve(1)
+        seen = []
+        capture_logits(fresh, seen)
+        fb = fresh.submit(b, max_new_tokens=8)
+        fresh.run()
+        b_fresh = seen[0][0, len(b) - 1].float()
+        recycled = serve(1)
+        sa = recycled.submit(a, max_new_tokens=8)
+        sb = recycled.submit(b, max_new_tokens=8)
+        recycled.run()
+    ticks = fresh.steps + recycled.steps
+    base = baseline_arm(serve(4), run["prompts"], lambda e: e.steps, "serve_engine")
+    ticks += base["ticks"]
+    noise = rel_err(run["b_fresh_legacy"], b_fresh)
+    contaminated = rel_err(run["b_recycled"], b_fresh)
+    check(fb.done and sa.done and sb.done, "legacy bf16: a ServeEngine request did not complete")
+    check(contaminated > 3 * noise,
+          f"legacy bf16: recycled-slot B's first-token logits vs a fresh ServeEngine: "
+          f"rel err {contaminated}, not above 3x the paths' bf16 difference {noise}")
+    check(sb.generated == fb.generated,
+          f"legacy bf16: the ServeEngine's recycled slot changed B's tokens "
+          f"{sb.generated} vs {fb.generated}")
+    report = {"arch": cfg.name, "layers": cfg.num_layers,
+              "recycled_b_first_token_rel_err": contaminated,
+              "fresh_paths_rel_err": noise,
+              "recycled_b_tokens": run["recycled_b_tokens"], "fresh_b_tokens": fb.generated,
+              "baseline_one_run_each_no_claim": {
+                  "requests": LEGACY_REQUESTS, "prompt_lens": [int(n) for n in run["lens"]],
+                  "new_tokens": 16, "slots": 4, "prefill_chunk": 16,
+                  "legacy": run["legacy"], "serve_engine": base}}
+    log(f"[legacy bf16] {json.dumps(report)}")
+    run.clear()
+    del params
+    free_cuda()
+    return {"flash_attention": 0, "ssd_chunk": 0,
+            "rmsnorm": ticks * norms_per_tick(cfg, 1)}
+
+
 def kernels_line(times, paths):
     """The kernel entries with their launches: ``paths`` holds each main
     path's launch counts, and a kernel's ``launches`` is their sum."""
@@ -2781,6 +3226,35 @@ def main() -> int:
     log(f"[knd train path] kernel launches: {paths['knd_train']}")
     check(paths["knd_train"] == add_launches(*want),
           f"knd train path launches {paths['knd_train']} != {add_launches(*want)}")
+
+    # the elastic path: phase 23, (a) on the CPU's gloo ranks (no launch),
+    # (b) danube's failed, resumed and uninterrupted runs on the card
+    reset_launch_counts()
+    timed("elastic ranks (cpu)", phase_elastic_ranks)
+    want = timed("elastic card", phase_elastic_card)
+    paths["elastic"] = launch_counts()
+    log(f"[elastic path] kernel launches: {paths['elastic']}")
+    check(paths["elastic"] == want, f"elastic path launches {paths['elastic']} != {want}")
+
+    # the legacy path: phase 24, the legacy engine's f32 check and its
+    # bf16 runs at full size, 2L+1 RMSNorm per legacy tick
+    reset_launch_counts()
+    want = [timed("legacy f32", phase_legacy_f32, rng)]
+    launches, legacy_run = timed("legacy bf16", phase_legacy_bf16, rng)
+    want.append(launches)
+    paths["legacy"] = launch_counts()
+    log(f"[legacy path] kernel launches: {paths['legacy']}")
+    check(paths["legacy"] == add_launches(*want),
+          f"legacy path launches {paths['legacy']} != {add_launches(*want)}")
+
+    # the ServeEngine beside the legacy engine (phase 24's comparison):
+    # its own counts, 2L+1 RMSNorm per ServeEngine tick
+    reset_launch_counts()
+    want = timed("legacy vs serve engine", phase_legacy_vs_serve, legacy_run)
+    paths["legacy_vs_serve"] = launch_counts()
+    log(f"[legacy vs serve path] kernel launches: {paths['legacy_vs_serve']}")
+    check(paths["legacy_vs_serve"] == want,
+          f"legacy vs serve path launches {paths['legacy_vs_serve']} != {want}")
 
     for e in times:
         if e["name"] == "ssd_chunk":

@@ -316,12 +316,15 @@ class CheckpointManager:
     ``store_provider`` is sampled synchronously at each ``save`` so the
     network state in the checkpoint is consistent with the step being
     written, even when the file write itself is async.
+    ``compress_level`` is the codec's level for every save (the port's
+    own field; the JAX package's manager always writes level 3).
     """
 
     directory: str
     keep: int = 3
     async_save: bool = True
     store_provider: Optional[Callable[[], Dict[str, Any]]] = None
+    compress_level: int = 3
     _thread: Optional[threading.Thread] = field(default=None, repr=False)
     _error: Optional[BaseException] = field(default=None, repr=False)
     _barrier: bool = field(default=False, repr=False)
@@ -340,6 +343,7 @@ class CheckpointManager:
             def work():
                 try:
                     save_checkpoint(self.directory, step, host_tree,
+                                    compress_level=self.compress_level,
                                     store_dump=store_dump)
                     self._rotate()
                 except BaseException as e:  # noqa: BLE001 - re-raised by wait()
@@ -348,6 +352,7 @@ class CheckpointManager:
             self._thread.start()
         else:
             save_checkpoint(self.directory, step, host_tree,
+                            compress_level=self.compress_level,
                             store_dump=store_dump)
             self._rotate()
 

@@ -55,7 +55,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -68,43 +67,16 @@ REDERIVE_TIMEOUT_S = 600   # as ControlPlane.wait_for's informer wait
 def _spawn_ranks(argv: List[str], world: int) -> Dict[str, Any]:
     """Run this launcher on ``world`` gloo ranks (one process each, file
     rendezvous); relays rank 0's output and returns its report."""
+    from . import _ranks
+
     work = tempfile.mkdtemp(prefix="repro-torch-train-")
-    src = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    env = {**os.environ, "OMP_NUM_THREADS": "1",
-           "PYTHONPATH": os.pathsep.join(
-               [src] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
-    paths = [os.path.join(work, f"rank{r}.log") for r in range(world)]
-    procs = []
-    for r, path in enumerate(paths):
-        with open(path, "wb") as out:
-            procs.append(subprocess.Popen(
-                [sys.executable, "-m", "repro_torch.launch.train", *argv,
-                 "--rank", str(r), "--rendezvous", os.path.join(work, "rdzv")],
-                stdout=out, stderr=subprocess.STDOUT, env=env))
-    deadline = time.monotonic() + RANK_TIMEOUT_S
-    try:
-        # a failed rank leaves the others waiting in a collective: stop
-        # them all as soon as one fails
-        while (any(p.poll() is None for p in procs)
-               and not any(p.returncode for p in procs)
-               and time.monotonic() < deadline):
-            time.sleep(0.1)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    logs = []
-    for path in paths:
-        with open(path, "rb") as f:
-            logs.append(f.read().decode(errors="replace"))
-    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
-    if failed:
-        raise RuntimeError(f"train ranks {failed} failed:\n" + "\n".join(
-            f"--- rank {r}\n{logs[r][-4000:]}" for r in failed))
+    rdzv = os.path.join(work, "rdzv")
+    logs = _ranks.spawn(
+        lambda r: [sys.executable, "-m", "repro_torch.launch.train", *argv,
+                   "--rank", str(r), "--rendezvous", rdzv],
+        world, work, RANK_TIMEOUT_S, "train")
     sys.stdout.write(logs[0])
-    with open(os.path.join(work, "rdzv.report.json")) as f:
+    with open(rdzv + ".report.json") as f:
         return json.load(f)
 
 

@@ -265,7 +265,9 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     Sliding-window configs keep a ring buffer of size min(window,
     S_max); keys carry their RoPE at write time so slot order is
     irrelevant. The cache is written in place (the JAX version returns
-    an updated copy) and returned.
+    an updated copy) and returned. A clock past the cache (the legacy
+    engine's unbounded one) drops its row's write, as JAX's scatter
+    drops an out-of-range update.
     """
     B = x.shape[0]
     cdt = cfg.compute_torch_dtype()
@@ -278,8 +280,10 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     slot = pos % Scache if cfg.sliding_window > 0 else pos
     rows = torch.arange(B, device=x.device)
     ck, cv = cache["k"], cache["v"]
-    ck[rows, slot] = k[:, 0].to(ck.dtype)
-    cv[rows, slot] = v[:, 0].to(cv.dtype)
+    keep = (slot < Scache)[:, None, None]
+    slot = torch.clamp(slot, max=Scache - 1)
+    ck[rows, slot] = torch.where(keep, k[:, 0].to(ck.dtype), ck[rows, slot])
+    cv[rows, slot] = torch.where(keep, v[:, 0].to(cv.dtype), cv[rows, slot])
     ck = constrain(ck, "batch", "seq_kv", "act_kv", None)
     cv = constrain(cv, "batch", "seq_kv", "act_kv", None)
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim

@@ -700,3 +700,98 @@ def test_train_launcher_mesh_on_the_card(cuda, tmp_path):
     assert meshed["knd"]["mesh"] == {"data": 1, "model": 1}
     assert meshed["losses"] == plain["losses"]
     assert meshed["grad_norms"] == plain["grad_norms"]
+
+
+# ---------------------------------------------------------------------------
+# Elastic re-planning and the legacy engine on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_elastic_survivors_resume_bit_equal_on_the_card(cuda, tmp_path):
+    """Smoke h2o-danube-1.8b on the card under an ElasticController whose
+    bus is the trainer's, on the (x=1, y=4) pod with model_axis 1: the
+    FaultInjector stops fit at step 5 and the controller re-plans (2, 1)
+    on the survivors; a new trainer resumes the step-3 checkpoint, and its
+    steps 4 and 5 are bit-equal to an uninterrupted run's (step 4 also to
+    the failed run's)."""
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.core import DriverRegistry, IciDriver, TpuDriver
+    from repro_torch.core.nri import Events
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch.elastic import ElasticController
+    from repro_torch.topology.tpu import TpuPodSpec, build_tpu_cluster
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.schedule import constant_schedule
+    from repro_torch.train.train_step import StepConfig
+    from repro_torch.train.trainer import FaultInjector, Trainer
+    cfg = smoke_config("h2o-danube-1.8b")
+    cluster = build_tpu_cluster(1, TpuPodSpec(x=1, y=4))
+    reg = DriverRegistry()
+    reg.add(TpuDriver(cluster)).add(IciDriver(cluster))
+    reg.run_discovery()
+    ctl = ElasticController(cluster, reg, model_axis=1, reconcile_mode="inline")
+    ckpt = CheckpointManager(str(tmp_path))
+
+    def trainer(**kw):
+        return Trainer(cfg, AdamW(constant_schedule(1e-3)), SyntheticLMData(cfg, 8, 32),
+                       step_cfg=StepConfig(remat="dots"), device=cuda, **kw)
+
+    try:
+        assert ctl.plan_mesh().axis_shape == (4, 1)
+        node = reg.pool.nodes()[0]
+        failed = trainer(ckpt=ckpt, ckpt_every=3,
+                         drivers=[FaultInjector(fail_at=5, node=node)])
+        ctl.registry.bus = failed.bus
+        failed.bus.subscribe(Events.NODE_FAILED, ctl.on_node_failed, "elastic")
+        failed.init(0)
+        assert failed.fit(10) == {"stopped_at": 5, "reason": "node_failure"}
+        ckpt.wait()
+        assert ctl.mesh_shape == (2, 1)
+        assert ctl.claim.allocated and ctl.claim.prepared
+        resumed = trainer(ckpt=ckpt)
+        assert resumed.resume() == 3
+        resumed.fit(2)
+        whole = trainer()
+        whole.init(0)
+        whole.fit(6)
+    finally:
+        ctl.close()
+    loss = {h["step"]: h["loss"] for h in whole.history}
+    assert [h["step"] for h in resumed.history] == [4, 5]
+    assert [h["loss"] for h in resumed.history] == [loss[4], loss[5]]
+    assert failed.history[-1] == {"step": 4, "loss": loss[4]}
+
+
+@pytest.mark.gpu
+def test_legacy_engine_greedy_tokens_on_the_card_equal_the_cpu(cuda):
+    """Smoke h2o-danube-1.8b in f32: the legacy engine's greedy tokens on
+    the card equal the CPU's for four requests admitted together and a
+    recycled slot; its RMSNorm launches are 2L+1 per tick."""
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.models import lm
+    from repro_torch.serve.legacy import LegacyServeEngine
+    from repro_torch.tree import tree_map
+    cfg = smoke_config("h2o-danube-1.8b").replace(param_dtype="float32",
+                                                  compute_dtype="float32")
+    params = lm.init_params(cfg, 0, "cpu")
+    prompts = [[3, 1, 4], [1, 5, 9, 2, 6, 5, 3], [5], [8, 9, 7, 9, 3, 2, 3, 8, 4, 6]]
+    out, ticks = {}, 0
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda t: t.to(dev), params)
+        toks = []
+        for slots, reqs in ((4, prompts), (1, prompts[:2])):
+            eng = LegacyServeEngine(cfg, p, batch_slots=slots, max_len=64, device=dev)
+            rs = [eng.submit(q, max_new_tokens=6) for q in reqs]
+            before = launch_counts()["rmsnorm"]
+            with torch.no_grad():
+                eng.run()
+            launched = launch_counts()["rmsnorm"] - before
+            n = int(eng.cache["pos"])             # one tick per clock step
+            if dev != "cpu":
+                assert launched == n * (2 * cfg.num_layers + 1)
+                ticks += n
+            toks.append([r.generated for r in rs])
+        out[str(dev)] = toks
+    assert out["cuda"] == out["cpu"]
+    assert ticks > 0

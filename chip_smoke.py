@@ -23,7 +23,8 @@ checkpoint of the sharded state through the train launcher, re-plans an
 elastic job after a node failure (gloo ranks on the CPU that shrink from
 four to two; h2o-danube-1.8b at full width resuming on the card) and
 serves h2o-danube-1.8b at full size on the legacy fixed-width engine,
-with random weights from a seed, in phases (each logs its seconds):
+and holds the dry run's roofline against the card, with random weights
+from a seed, in phases (each logs its seconds):
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc for the three CUDA libraries (RMSNorm, flash attention,
@@ -169,12 +170,22 @@ with random weights from a seed, in phases (each logs its seconds):
      beside the ServeEngine's on the same prompts and slots (one run each
      at a toy load: logged, no claim); the ServeEngine's runs are a path
      of their own;
-  11. the kernels line: launches on the sixteen paths, in this order
+  25. dryrun card: the roofline's constants read on the card (dense
+     bf16, TF32 and f32 matmul rates, HBM bytes/s; each at or below the
+     data sheet); the dry run (``repro_torch.launch.dryrun.lower_cell``)
+     of danube's train_4k cell on a fake 16 x 16 process group on this
+     machine's CPU, ok, with its roofline on those constants; and danube
+     at full width and DRYRUN_LAYERS layers, one AdamW step traced on
+     fake tensors and run on the card under the same counter: matmul
+     FLOPs equal, the trace's peak within 10 % of max_memory_allocated,
+     the measured step at least the roofline's;
+  11. the kernels line: launches on the seventeen paths, in this order
      (phases 5-6, the dense path; 6b, plane cost; 7-7c, the moe path;
      10-10b, the hybrid
      path; 12-12b, vision; 13-13b, audio; 14-14b, train; 15, trainer;
      8-9, the ssm path; 17-19, mesh; 22, mesh families; 20, knd serve;
-     21 and 16, knd train; 23, elastic; 24, legacy and legacy vs serve),
+     21 and 16, knd train; 23, elastic; 24, legacy and legacy vs serve;
+     25, dryrun),
      each path's counts
      set to 0 just before it
      (the mesh and mesh families paths: before each of their runs) and
@@ -3021,6 +3032,74 @@ def phase_legacy_vs_serve(run):
             "rmsnorm": ticks * norms_per_tick(cfg, 1)}
 
 
+DRYRUN_LAYERS = 2                  # [dryrun card]: danube at full width, 2 of 24 layers
+DRYRUN_BATCH, DRYRUN_SEQ = 8, 64
+DRYRUN_MEM_REL = 0.10              # the trace's peak vs max_memory_allocated
+
+
+def phase_dryrun_card():
+    """[dryrun card]: the dry run's roofline held against the card.
+    (1) The constants: the dense bf16, TF32 and f32 matmul rates and HBM
+    bytes/s (``roofline.measure.measure_constants``), each at or below the
+    H100 SXM5 data sheet (a reading above it is a measurement fault).
+    (2) ``lower_cell("h2o-danube-1.8b", "train_4k")`` on a fake 16 x 16
+    process group, on this machine's CPU and torch: status ok, its
+    roofline line on the measured constants. (3) danube at full width and
+    DRYRUN_LAYERS layers, one AdamW step of DRYRUN_BATCH x DRYRUN_SEQ,
+    remat full, dense attention, no mesh (``roofline.measure.card_step``):
+    traced on fake tensors, then run on the card under the same counter:
+    matmul FLOPs equal, the trace's peak within DRYRUN_MEM_REL of
+    ``max_memory_allocated``, the measured step (CUDA events, median of 3
+    after a warm-up) at least the roofline's step time. Returns the
+    RMSNorm launches: 6 steps (warm-up, counted, 3 timed, profiled) of
+    4L+1 each (remat full reruns the layer bodies' norms)."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.roofline.analysis import roofline_terms
+    from repro_torch.roofline.measure import DATASHEET, card_step, measure_constants, spec_from
+
+    card = gpu_line()
+    measured = measure_constants()
+    log(f"[dryrun card] constants ({card}): {json.dumps(measured)}; "
+        f"data sheet {json.dumps(DATASHEET)}")
+    for key, sheet in DATASHEET.items():
+        check(measured[key] <= sheet, f"[dryrun card] {key} {measured[key]:.4g} above the "
+                                      f"data sheet's {sheet:.4g}: a measurement fault")
+    hw = spec_from(measured, card)
+
+    t0 = time.perf_counter()
+    rec = lower_cell(ARCH, "train_4k")
+    trace_s = time.perf_counter() - t0
+    check(rec["status"] == "ok", f"[dryrun card] lower_cell: {rec}")
+    r = roofline_terms(rec, hw=hw)
+    log(f"[dryrun card] {ARCH} train_4k {rec['mesh']} (torch {torch.__version__}, "
+        f"{trace_s:.1f} s on the host): compute={r.compute_s:.4f}s "
+        f"memory={r.memory_s:.4f}s collective={r.collective_s:.4f}s dominant={r.dominant} "
+        f"mfu<={r.mfu_bound() * 100:.2f}% useful={r.useful_ratio * 100:.1f}% "
+        f"mem={r.per_device_gib:.3f}GiB flops={rec['flops']:.6g} bytes={rec['hlo_bytes']:.6g} "
+        f"collectives={json.dumps(rec['collectives_by_axis'])}")
+
+    cfg = get_config(ARCH).replace(num_layers=DRYRUN_LAYERS)
+    out = card_step(cfg, DRYRUN_BATCH, DRYRUN_SEQ, hw=hw, seed=SEED)
+    pred, got = out["predicted"], out["card"]
+    ratio = out["step_ms"] / (1e3 * out["roofline"]["step_time_s"])
+    mem_rel = abs(pred["peak_bytes"] - got["max_memory_allocated_bytes"]) / \
+        got["max_memory_allocated_bytes"]
+    log(f"[dryrun card] danube {DRYRUN_LAYERS}L {DRYRUN_BATCH}x{DRYRUN_SEQ}: "
+        f"{json.dumps({**out, 'measured_over_bound': ratio, 'memory_rel': mem_rel})}")
+    check(math.isfinite(out["loss"]), f"[dryrun card] loss {out['loss']}")
+    check(got["flops"] == pred["flops"] and pred["flops"] > 0,
+          f"[dryrun card] matmul FLOPs: card {got['flops']} vs trace {pred['flops']}")
+    check(mem_rel <= DRYRUN_MEM_REL,
+          f"[dryrun card] peak: trace {pred['peak_bytes']} vs max_memory_allocated "
+          f"{got['max_memory_allocated_bytes']} ({mem_rel:.3f} > {DRYRUN_MEM_REL})")
+    check(ratio >= 1.0, f"[dryrun card] measured step {out['step_ms']:.3f} ms below the "
+                        f"roofline's {1e3 * out['roofline']['step_time_s']:.3f} ms")
+    return {"flash_attention": 0, "ssd_chunk": 0,
+            "rmsnorm": 6 * (4 * cfg.num_layers + 1)}
+
+
 def kernels_line(times, paths):
     """The kernel entries with their launches: ``paths`` holds each main
     path's launch counts, and a kernel's ``launches`` is their sum."""
@@ -3255,6 +3334,14 @@ def main() -> int:
     log(f"[legacy vs serve path] kernel launches: {paths['legacy_vs_serve']}")
     check(paths["legacy_vs_serve"] == want,
           f"legacy vs serve path launches {paths['legacy_vs_serve']} != {want}")
+
+    # the dryrun path: phase 25, the dry run's counts against the card;
+    # RMSNorm through its autograd wrapper in the real steps
+    reset_launch_counts()
+    want = timed("dryrun card", phase_dryrun_card)
+    paths["dryrun"] = launch_counts()
+    log(f"[dryrun path] kernel launches: {paths['dryrun']}")
+    check(paths["dryrun"] == want, f"dryrun path launches {paths['dryrun']} != {want}")
 
     for e in times:
         if e["name"] == "ssd_chunk":

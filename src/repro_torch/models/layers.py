@@ -34,9 +34,9 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.rmsnorm.ops import rmsnorm as rmsnorm_op
 from ..kernels.ssd_scan.ops import shard_layout, ssd_chunk
-from ..parallel.sharding import (constrain, current_rules, local_shard,
-                                 logical_to_pspec, mesh_axis_sizes, placements,
-                                 replicated_like, whole_dims)
+from ..parallel.sharding import (constrain, current_rules, from_local_shard, local_einsum,
+                                 local_shard, logical_to_pspec, mesh_axis_sizes,
+                                 placements, replicated_like, whole_dims)
 from .config import ModelConfig
 from .modules import Builder, he_normal, normal_init, ones_init, zeros_init
 
@@ -76,7 +76,7 @@ def rope_table(positions: torch.Tensor, head_dim: int, theta: float
     """cos/sin tables for given absolute positions: (..., head_dim//2)."""
     half = head_dim // 2
     exps = torch.arange(half, dtype=torch.float32, device=positions.device) / half
-    freqs = 1.0 / (theta ** exps)
+    freqs = replicated_like(1.0 / (theta ** exps), positions)
     ang = positions.float()[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
 
@@ -122,20 +122,26 @@ def build_attention(b: Builder, cfg: ModelConfig) -> Params:
 
 
 def _rows(x: torch.Tensor) -> torch.Tensor:
-    """``x`` (B, S, ...) ready for a product that flattens (B, S) into
-    rows: under a mesh, its sequence dim gathered, since DTensor flattens
-    sharded dims only where the sharded one leads."""
+    """``x`` (B, S, ...) with its sequence dim whole under a mesh: the
+    input both mixers of a layer share, and the FFN's under the
+    Megatron-SP boundary (whose hidden dim is split instead)."""
     return whole_dims(x, 1)
+
+
+def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a weight ``w`` (d, n); under a mesh on the local
+    shards (:func:`..parallel.sharding.local_einsum`)."""
+    lead = "abc"[:x.dim() - 1]
+    return local_einsum(f"{lead}d,dn->{lead}n", x, w, op=torch.matmul)
 
 
 def _project_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The q/k/v projections (+ qkv bias), before RoPE."""
     cdt = cfg.compute_torch_dtype()
-    x = _rows(x)
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cdt))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(cdt))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(cdt))
+    q = local_einsum("bsd,dhk->bshk", x, p["wq"].to(cdt))
+    k = local_einsum("bsd,dhk->bshk", x, p["wk"].to(cdt))
+    v = local_einsum("bsd,dhk->bshk", x, p["wv"].to(cdt))
     if cfg.qkv_bias:
         q = q + p["bq"].to(cdt)
         k = k + p["bk"].to(cdt)
@@ -167,20 +173,39 @@ def _attend_dense(cfg: ModelConfig, q, k, v, q_pos, k_pos) -> torch.Tensor:
     K = k.shape[2]
     G = H // K
     qg = q.reshape(B, Sq, K, G, hd)
-    qg = constrain(qg, "batch", "seq", "act_kv", None, None)
     scale = 1.0 / math.sqrt(hd)
-    # both products flatten (batch, kv head) and (group, query): under a
-    # mesh the kv heads and the query's sequence are gathered first, as
-    # _rows gathers the sequence (DTensor flattens only a leading sharded dim)
-    scores = torch.einsum("bqkgh,bskh->bkgqs", whole_dims(qg, 1, 2),
-                          whole_dims(k, 2)).float() * scale
-    scores = constrain(scores, "batch", "act_kv", None, "seq", None)
-    mask = replicated_like(_mask(q_pos, k_pos, cfg.sliding_window), scores)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k).float() * scale
+    mask = _mask(q_pos, k_pos, cfg.sliding_window)
     scores = torch.where(mask[None, None, None], scores, _neg_inf(scores))
     w = torch.softmax(scores, dim=-1).to(q.dtype)
-    w = constrain(w, "batch", "act_kv", None, "seq", None)
-    out = torch.einsum("bkgqs,bskh->bqkgh", whole_dims(w, 1, 3), whole_dims(v, 2))
+    out = torch.einsum("bkgqs,bskh->bqkgh", w, v)
     return out.reshape(B, Sq, H, hd)
+
+
+def _attend_sharded(fn, cfg: ModelConfig, q, k, v, q_pos, k_pos) -> torch.Tensor:
+    """``fn`` (:func:`_attend_dense` or :func:`_attend_blockwise`) on
+    this rank's shards under a mesh, as GSPMD partitions the JAX version:
+    q keeps its batch and sequence shards, and its heads' where k and v
+    split their heads over the same mesh dim (the groups stay whole); k
+    and v come whole in every other dim, their gradients partial sums over
+    the mesh dims that split q's sequence; q's positions are cut as its
+    sequence is. Plain tensors go to ``fn`` as they are."""
+    if not isinstance(q, DTensor):
+        return fn(cfg, q, k, v, q_pos, k_pos)
+    mesh = q.device_mesh
+    q_pl, kv_pl, kv_g, pos_pl = [], [], [], []
+    for a, b in zip(q.placements, k.placements):
+        if a == Shard(0) or (a == Shard(2) and b == Shard(2)):
+            pick = (a, a, a, Replicate())
+        elif a == Shard(1):
+            pick = (a, Replicate(), Partial(), Shard(0))
+        else:
+            pick = (Replicate(),) * 4
+        for acc, p_ in zip((q_pl, kv_pl, kv_g, pos_pl), pick):
+            acc.append(p_)
+    out = fn(cfg, local_shard(q, mesh, q_pl), local_shard(k, mesh, kv_pl, kv_g),
+             local_shard(v, mesh, kv_pl, kv_g), local_shard(q_pos, mesh, pos_pl), k_pos)
+    return from_local_shard(out, mesh, q_pl, q.shape)
 
 
 def _attend_blockwise(cfg: ModelConfig, q, k, v, q_pos, k_pos) -> torch.Tensor:
@@ -188,16 +213,12 @@ def _attend_blockwise(cfg: ModelConfig, q, k, v, q_pos, k_pos) -> torch.Tensor:
     B, S, H, hd = q.shape
     K = k.shape[2]
     G = H // K
-    # blockwise path iterates seq blocks serially: keep seq replicated so
-    # per-block slices stay local (batch/head sharding only)
-    q = constrain(q, "batch", None, "act_heads", None)
-    k = constrain(k, "batch", None, "act_kv", None)
-    v = constrain(v, "batch", None, "act_kv", None)
     scale = 1.0 / math.sqrt(hd)
+    Sk = k.shape[1]                   # S, or the whole sequence beside a q shard
     nq = -(-S // Q_BLOCK)
-    nk = -(-S // KV_BLOCK)
+    nk = -(-Sk // KV_BLOCK)
     pad_q = nq * Q_BLOCK - S
-    pad_k = nk * KV_BLOCK - S
+    pad_k = nk * KV_BLOCK - Sk
     qp = F.pad(q, (0, 0, 0, 0, 0, pad_q))
     kp = F.pad(k, (0, 0, 0, 0, 0, pad_k))
     vp = F.pad(v, (0, 0, 0, 0, 0, pad_k))
@@ -245,14 +266,14 @@ def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
         out = flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
     elif attention_impl == "dense" or (attention_impl == "auto"
                                        and S <= BLOCKWISE_THRESHOLD):
-        out = _attend_dense(cfg, q, k, v, pos, pos)
+        out = _attend_sharded(_attend_dense, cfg, q, k, v, pos, pos)
     elif attention_impl == "auto":
-        out = _attend_blockwise(cfg, q, k, v, pos, pos)
+        out = _attend_sharded(_attend_blockwise, cfg, q, k, v, pos, pos)
     else:
         raise ValueError(f"unknown attention_impl {attention_impl!r}")
     out = constrain(out, "batch", "seq", "act_heads", None)
     cdt = cfg.compute_torch_dtype()
-    y = torch.einsum("bshk,hkd->bsd", _rows(out), p["wo"].to(cdt))
+    y = local_einsum("bshk,hkd->bsd", out, p["wo"].to(cdt))
     return constrain(y, "batch", "seq", "act_embed")
 
 
@@ -278,18 +299,17 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     slot = pos % Scache if cfg.sliding_window > 0 else pos
-    rows = torch.arange(B, device=x.device)
     ck, cv = cache["k"], cache["v"]
-    keep = (slot < Scache)[:, None, None]
-    slot = torch.clamp(slot, max=Scache - 1)
-    ck[rows, slot] = torch.where(keep, k[:, 0].to(ck.dtype), ck[rows, slot])
-    cv[rows, slot] = torch.where(keep, v[:, 0].to(cv.dtype), cv[rows, slot])
+    _write_slot(ck, k, slot)
+    _write_slot(cv, v, slot)
     ck = constrain(ck, "batch", "seq_kv", "act_kv", None)
     cv = constrain(cv, "batch", "seq_kv", "act_kv", None)
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    qg = q.reshape(B, 1, K, H // K, hd)
+    # under a mesh q's heads are made whole before the group split, which
+    # a mesh dim that splits the heads may not divide (one token: cheap)
+    qg = whole_dims(q, 2).reshape(B, 1, K, H // K, hd)
     scores = torch.einsum("bqkgh,bskh->bkgqs", qg, ck.to(cdt)).float() / math.sqrt(hd)
-    idx = torch.arange(Scache, device=x.device)
+    idx = replicated_like(torch.arange(Scache, device=x.device), pos)
     if cfg.sliding_window > 0:
         valid = idx[None, :] < torch.clamp(pos + 1, max=Scache)[:, None]
     else:
@@ -297,8 +317,46 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     scores = torch.where(valid[:, None, None, None, :], scores, _neg_inf(scores))
     w = torch.softmax(scores, dim=-1).to(cdt)
     out = torch.einsum("bkgqs,bskh->bqkgh", w, cv.to(cdt)).reshape(B, 1, H, hd)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(cdt))
+    y = local_einsum("bshk,hkd->bsd", out, p["wo"].to(cdt))
     return y, {"k": ck, "v": cv}
+
+
+def _shard_offset(size: int, mesh: Any, pl: list, dim: int) -> int:
+    """Where this rank's shard of tensor dim ``dim`` (of ``size``) starts:
+    DTensor's chunks (ceil(size / n) each, the last ones short or empty),
+    nested in mesh-dim order."""
+    first, coord = 0, mesh.get_coordinate()
+    for i, q in enumerate(pl):
+        if q == Shard(dim):
+            chunk = -(-size // mesh.size(i))
+            start = min(coord[i] * chunk, size)
+            first += start
+            size = min(chunk, size - start)
+    return first
+
+
+def _write_slot(c: torch.Tensor, new: torch.Tensor, slot: torch.Tensor) -> None:
+    """``c[b, slot[b]] = new[b, 0]`` in place for every row b of a cache
+    (B,Scache,K,hd); a slot past the cache drops its row's write, as JAX's
+    scatter drops an out-of-range update. A ``DTensor`` cache is written
+    on this rank's shard: its batch rows and kv heads, and the slots of
+    its sequence shard (the others' writes dropped here, made there)."""
+    Scache = c.shape[1]
+    keep = slot < Scache
+    if isinstance(c, DTensor):
+        mesh, pl = c.device_mesh, list(c.placements)
+        new = local_shard(new, mesh, [q if q in (Shard(0), Shard(2)) else Replicate()
+                                      for q in pl])
+        row_pl = [q if q == Shard(0) else Replicate() for q in pl]
+        keep, slot = (local_shard(t, mesh, row_pl) for t in (keep, slot))
+        first = _shard_offset(c.shape[1], mesh, pl, 1)
+        c = c.to_local()
+        slot = slot - first
+        keep = keep & (slot >= 0) & (slot < c.shape[1])
+        Scache = c.shape[1]
+    rows = torch.arange(c.shape[0], device=c.device)
+    slot = torch.clamp(slot, 0, Scache - 1)
+    c[rows, slot] = torch.where(keep[:, None, None], new[:, 0].to(c.dtype), c[rows, slot])
 
 
 def attention_decode_paged(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -441,19 +499,20 @@ def _ffn_use_sp_boundary(x: torch.Tensor, d_ff: int) -> bool:
 def mlp_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     cdt = cfg.compute_torch_dtype()
     seq_ax = None if _ffn_use_sp_boundary(x, p["w_up"].shape[-1]) else "seq"
-    x = _rows(x)
-    up = torch.einsum("bsd,df->bsf", x, p["w_up"].to(cdt))
+    if seq_ax is None:
+        x = _rows(x)        # Megatron-SP: the sequence whole, the hidden dim split
+    up = local_einsum("bsd,df->bsf", x, p["w_up"].to(cdt))
     up = constrain(up, "batch", seq_ax, "act_ff")
     if cfg.act == "swiglu":
-        g = torch.einsum("bsd,df->bsf", x, p["w_gate"].to(cdt))
+        g = local_einsum("bsd,df->bsf", x, p["w_gate"].to(cdt))
         h = F.silu(g) * up
     elif cfg.act == "geglu":
-        g = torch.einsum("bsd,df->bsf", x, p["w_gate"].to(cdt))
+        g = local_einsum("bsd,df->bsf", x, p["w_gate"].to(cdt))
         h = F.gelu(g, approximate="tanh") * up       # jax.nn.gelu's default
     else:
         h = F.gelu(up, approximate="tanh")
     h = constrain(h, "batch", seq_ax, "act_ff")
-    y = torch.einsum("bsf,fd->bsd", _rows(h), p["w_down"].to(cdt))
+    y = local_einsum("bsf,fd->bsd", h, p["w_down"].to(cdt))
     return constrain(y, "batch", "seq", "act_embed")
 
 
@@ -598,14 +657,14 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor
         eb = DTensor.from_local(eb, mesh, pl_e, run_check=False)
     eb = constrain(eb, "act_experts", "moe_cap", None)
 
-    up = torch.einsum("ecd,edf->ecf", eb, p["w_up"].to(cdt))
-    gate = torch.einsum("ecd,edf->ecf", eb, p["w_gate"].to(cdt))
+    up = local_einsum("ecd,edf->ecf", eb, p["w_up"].to(cdt))
+    gate = local_einsum("ecd,edf->ecf", eb, p["w_gate"].to(cdt))
     if cfg.act == "geglu":
         act = F.gelu(gate, approximate="tanh") * up   # jax.nn.gelu's default
     else:
         act = F.silu(gate) * up
     act = constrain(act, "act_experts", "moe_cap", None)
-    out = torch.einsum("ecf,efd->ecd", act, p["w_down"].to(cdt))
+    out = local_einsum("ecf,efd->ecd", act, p["w_down"].to(cdt))
     out = constrain(out, "act_experts", "moe_cap", None)
     if mesh is not None:
         out = local_shard(out, mesh, rep)
@@ -705,16 +764,20 @@ def _batch_shards(fn, rows, whole):
 def _ssd_in(cfg: ModelConfig, p: Params, x: torch.Tensor):
     """The five input projections in the compute dtype: x, z, B, C, dt."""
     cdt = cfg.compute_torch_dtype()
-    return tuple(x @ p[name].to(cdt)
+    return tuple(_matmul(x, p[name].to(cdt))
                  for name in ("w_in_x", "w_in_z", "w_in_B", "w_in_C", "w_in_dt"))
 
 
 def _gated_out(cfg: ModelConfig, p: Params, y: torch.Tensor, z: torch.Tensor
                ) -> torch.Tensor:
-    """rmsnorm(y * silu(z)) @ w_out, in the compute dtype."""
+    """rmsnorm(y * silu(z)) @ w_out, in the compute dtype. Under a mesh z's
+    inner dim is made whole first, as the norm needs it: a split z would
+    split y's gradient in that dim, which its heads (reshaped from it) may
+    not divide."""
     cdt = cfg.compute_torch_dtype()
+    z = whole_dims(z, z.dim() - 1)
     y = rmsnorm(p["norm"], y.to(cdt) * F.silu(z), cfg.norm_eps)
-    return _rows(y) @ p["w_out"].to(cdt)
+    return _matmul(y, p["w_out"].to(cdt))
 
 
 def _ssd_chunks(cfg: ModelConfig, S: int, xs, Bm, Cm, dt, conv_w, conv_b,
@@ -774,7 +837,7 @@ def ssd_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
     B, S, _ = x.shape
     di, H, P = cfg.ssm_d_inner, cfg.ssm_num_heads, cfg.ssm_head_dim
 
-    xs, z, Bm, Cm, dt = _ssd_in(cfg, p, _rows(x))
+    xs, z, Bm, Cm, dt = _ssd_in(cfg, p, x)
     xs = constrain(xs, "batch", "seq", "act_ff")
     xh, Bc, Cc, dtc, dAc, conv_in = _batch_shards(
         functools.partial(_ssd_chunks, cfg, S), (xs, Bm, Cm, dt),
@@ -802,7 +865,8 @@ def ssd_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
                     "batch", "seq", "act_embed")
     if return_state:
         k = cfg.conv_kernel
-        conv_tail = F.pad(conv_in, (0, 0, k - 1, 0))[:, S:S + k - 1]
+        conv_tail, = _batch_shards(lambda c: (F.pad(c, (0, 0, k - 1, 0))[:, S:S + k - 1],),
+                                   (conv_in,), ())
         return out, {"state": state, "conv": conv_tail}
     return out
 

@@ -29,13 +29,17 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor import zeros as dt_zeros
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
-from ..parallel.sharding import constrain, current_rules, use_rules, whole_dims
+from ..parallel.sharding import (active_mesh, constrain, current_rules, from_local_shard,
+                                 local_einsum, local_shard, logical_to_pspec, placements,
+                                 replicated_like, use_rules)
 from .config import ModelConfig
-from .layers import (_qkv, _rows, attention_apply, attention_decode,
+from .layers import (_matmul, _qkv, _rows, _shard_offset, attention_apply, attention_decode,
                      attention_decode_paged, build_attention, build_mlp,
                      build_moe, build_rmsnorm, build_ssd, init_kv_cache,
                      init_ssd_cache, mlp_apply, moe_apply, rmsnorm, ssd_apply,
@@ -55,6 +59,16 @@ def _layer(tree: Any, li: int) -> Any:
     if isinstance(tree, dict):
         return {k: _layer(v, li) for k, v in tree.items()}
     return tree[li]
+
+
+def _unstacked(tree: Any, L: int) -> list:
+    """The L layers of a stacked tree, one ``unbind`` per leaf (views):
+    the backward stacks the layers' gradients once, where indexing each
+    layer would add L stack-sized tensors of zeros."""
+    if isinstance(tree, dict):
+        per_key = {k: _unstacked(v, L) for k, v in tree.items()}
+        return [{k: v[li] for k, v in per_key.items()} for li in range(L)]
+    return list(torch.unbind(tree, 0))
 
 
 # ---------------------------------------------------------------------------
@@ -186,12 +200,24 @@ def layer_apply(cfg: ModelConfig, lp: Params, x: torch.Tensor,
 
 
 def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """``table[tokens]`` as ``F.embedding``, with or without a mesh: its
-    backward sums repeated tokens in f32 (indexing's sums in the table's
-    dtype), and DTensor propagates it. A ``DTensor`` table has its vocab
-    dim made whole first (DTensor's vocab-sharded lookup leaves pending
-    masked sums)."""
-    return F.embedding(tokens, whole_dims(table, 0))
+    """``table[tokens]`` as ``F.embedding``: its backward sums repeated
+    tokens in f32 (indexing's sums in the table's dtype). Under a mesh the
+    lookup runs on this rank's columns of the table (its vocab dim whole,
+    its embedding dim split as it is) for every token, and the rows come
+    back split in their last dim: each rank's gradient is then its columns'
+    exact sum over all tokens, whatever the number of ranks (DTensor's own
+    choice between this and a vocab-split lookup follows the sizes, and
+    the latter leaves masked sums that a fake tensor cannot resolve)."""
+    if not isinstance(tokens, DTensor) and not isinstance(table, DTensor):
+        return F.embedding(tokens, table)
+    mesh = (tokens if isinstance(tokens, DTensor) else table).device_mesh
+    rep = [Replicate()] * mesh.ndim
+    cols = [q if q == Shard(1) else Replicate()
+            for q in (table.placements if isinstance(table, DTensor) else rep)]
+    rows = F.embedding(local_shard(tokens, mesh, rep), local_shard(table, mesh, cols))
+    return from_local_shard(rows, mesh, [Shard(rows.dim() - 1) if q == Shard(1) else q
+                                         for q in cols],
+                            tuple(tokens.shape) + (table.shape[-1],))
 
 
 def embed_tokens(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor]
@@ -213,8 +239,8 @@ def embed_tokens(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor]
         x = _embed(p["embed"], tokens).to(cdt)
     if cfg.frontend == "vision" and "patch_embeds" in batch:
         pe = batch["patch_embeds"].to(cdt)                       # (B,P,vit)
-        img = F.gelu(pe @ p["proj_in"].to(cdt), approximate="tanh")  # jax.nn.gelu
-        x = torch.cat([img @ p["proj_hidden"].to(cdt), x], dim=1)
+        img = F.gelu(_matmul(pe, p["proj_in"].to(cdt)), approximate="tanh")  # jax.nn.gelu
+        x = torch.cat([_matmul(img, p["proj_hidden"].to(cdt)), x], dim=1)
     S = x.shape[1]
     x = constrain(x, "batch", "seq", "act_embed")
     return x, torch.arange(S, dtype=torch.int32, device=x.device)
@@ -223,15 +249,11 @@ def embed_tokens(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor]
 def lm_head(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """(B,S,V); audio (B,S,ncb,V)."""
     cdt = cfg.compute_torch_dtype()
-    x = _rows(x)
     if cfg.frontend == "audio":
-        # the product flattens (codebooks, vocab) of the head: its vocab
-        # dim is made whole first (torch 2.11's DTensor flattens sharded
-        # dims only where the sharded one leads)
-        logits = torch.einsum("bsd,cdv->bscv", x, whole_dims(p["head"], 2).to(cdt))
+        logits = local_einsum("bsd,cdv->bscv", x, p["head"].to(cdt))
         return constrain(logits, "batch", "seq", None, "act_vocab")
     w = p["embed"].T if cfg.tie_embeddings else p["head"]
-    logits = torch.einsum("bsd,dv->bsv", x, w.to(cdt))
+    logits = local_einsum("bsd,dv->bsv", x, w.to(cdt))
     return constrain(logits, "batch", "seq", "act_vocab")
 
 
@@ -291,8 +313,8 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
 
     if torch.is_grad_enabled():
         body = _remat(remat, body)
-    for li in range(cfg.num_layers):
-        x, aux = body(_layer(params["layers"], li), x)
+    for lp in _unstacked(params["layers"], cfg.num_layers):
+        x, aux = body(lp, x)
         for name, v in aux.items():
             aux_acc[name] = aux_acc[name] + v if name in aux_acc else v
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -301,14 +323,53 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
 
 def cross_entropy(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
                   weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-    lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
-    nll = lse - gold
+    """Mean next-token cross entropy (weighted by ``weights``); under a
+    mesh :func:`train_loss` takes :func:`_cross_entropy_sharded` instead
+    (DTensor's own gather would make its backward's zeros at the global
+    shape on every rank)."""
+    nll = _nll(logits, labels)
     if weights is None:
         return nll.mean()
     w = weights.float()
     return (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    return lse - gold
+
+
+def _cross_entropy_sharded(logits: torch.Tensor, labels: torch.Tensor,
+                           weights: Optional[torch.Tensor], prefix: int = 0
+                           ) -> torch.Tensor:
+    """:func:`cross_entropy` of a ``DTensor``'s logits on this rank's rows
+    (the vocab whole), each rank's part met in a sum across the ranks.
+    ``labels`` (and ``weights``) cover the logits' positions from
+    ``prefix`` on (the vision frontend's image prefix scores nothing);
+    audio labels keep their codebook dim (the mean is over every
+    codebook, as the unsharded path's flattened one). A rank's part is
+    its rows' mean scaled by their share of the rows, so that one rank
+    gives the unsharded bits."""
+    mesh = logits.device_mesh
+    rows = [Replicate() if q == Shard(logits.dim() - 1) else q for q in logits.placements]
+    summed = [Partial() if isinstance(q, Shard) else Replicate() for q in rows]
+    first = _shard_offset(logits.shape[1], mesh, rows, 1)     # this rank's sequence shard
+    lo = max(prefix - first, 0)
+    lf = local_shard(logits, mesh, rows)[:, lo:]              # its text positions
+    t0 = first + lo - prefix
+    whole = [q if q == Shard(0) else Replicate() for q in rows]  # the batch rows, S whole
+    lab = local_shard(labels, mesh, whole)[:, t0:t0 + lf.shape[1]]
+    nll = _nll(lf, lab)
+    if weights is None:
+        part = nll.mean() * (nll.numel() / labels.numel()) if nll.numel() else nll.sum()
+        return from_local_shard(part, mesh, summed, ())
+    w = local_shard(weights, mesh, whole)[:, t0:t0 + lf.shape[1]].float()
+    w = w.reshape(w.shape + (1,) * (nll.dim() - w.dim()))
+    num, den = (from_local_shard(t, mesh, summed, ())
+                for t in ((nll * w).sum(), w.expand_as(nll).sum()))
+    return num / torch.clamp(den, min=1.0)
 
 
 def train_loss(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
@@ -319,20 +380,18 @@ def train_loss(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     logits, aux = forward(cfg, params, batch, attention_impl, remat)
     labels = batch["labels"]
     weights = batch.get("weights")
-    if cfg.frontend == "vision":
-        # logits cover [img_tokens, text]; labels are text-only. Under a
-        # mesh the sequence is made whole before it is cut, and before
-        # the audio logits' (S, codebooks) are flattened
-        logits = whole_dims(logits, 1)[:, logits.shape[1] - labels.shape[1]:]
-    if cfg.frontend == "audio":
-        logits = whole_dims(logits, 1)
+    # logits cover [img_tokens, text] (vision); labels are text-only
+    prefix = logits.shape[1] - labels.shape[1]
+    if isinstance(logits, DTensor):
+        loss = _cross_entropy_sharded(logits, labels, weights, prefix)
+    elif cfg.frontend == "audio":
         loss = cross_entropy(
             cfg, logits.reshape(logits.shape[0], -1, logits.shape[-1]),
             labels.reshape(labels.shape[0], -1),
             None if weights is None
             else weights.repeat_interleave(cfg.num_codebooks, dim=-1))
     else:
-        loss = cross_entropy(cfg, logits, labels, weights)
+        loss = cross_entropy(cfg, logits[:, prefix:] if prefix else logits, labels, weights)
     metrics = {"ce_loss": loss}
     for name, v in aux.items():
         loss = loss + v  # aux coefficients already applied per layer
@@ -356,19 +415,46 @@ def _stacked_ssd_cache(cfg: ModelConfig, slots: int, dev: torch.device
             for name, a in sc.items()}
 
 
+def cache_axes(shape: Tuple[int, ...]) -> Tuple[Optional[str], ...]:
+    """The logical axes of a stacked cache leaf, as the JAX package's dry
+    run places the cache (``launch/dryrun.py:cache_shardings``): a 5-d
+    leaf whose dim 3 exceeds 1 (the KV cache (L,B,S,K,hd), and so also the
+    SSD state (L,B,H,N,P)) as (None, batch, seq_kv, act_kv, None), any
+    other of 2 dims or more on its batch dim 1; ``pos`` replicated."""
+    if len(shape) == 5 and shape[3] > 1:
+        return (None, "batch", "seq_kv", "act_kv", None)
+    if len(shape) >= 2:
+        return (None, "batch") + (None,) * (len(shape) - 2)
+    return (None,) * len(shape)
+
+
+def _zeros(shape: Tuple[int, ...], dtype: torch.dtype, dev: torch.device
+           ) -> torch.Tensor:
+    """A cache leaf of zeros; under rules with a mesh a ``DTensor`` placed
+    by :func:`cache_axes`, made shard by shard."""
+    mesh = active_mesh()
+    if mesh is None:
+        return torch.zeros(shape, dtype=dtype, device=dev)
+    pl = placements(logical_to_pspec(cache_axes(shape), current_rules(), shape), mesh)
+    return dt_zeros(shape, dtype=dtype, device_mesh=mesh, placements=pl)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: Device = None) -> Dict[str, Any]:
-    """Dense per-slot decode cache; ``pos`` is a per-slot clock (B,)."""
+    """Dense per-slot decode cache; ``pos`` is a per-slot clock (B,).
+    Under rules with a mesh every leaf is a ``DTensor`` placed by
+    :func:`cache_axes` (``pos`` replicated)."""
     dev = resolve_device(device)
-    cache: Dict[str, Any] = {"pos": torch.zeros((batch,), dtype=torch.int32,
-                                                device=dev)}
+    cache: Dict[str, Any] = {"pos": _zeros((batch,), torch.int32, dev)}
     L = cfg.num_layers
     if cfg.family != "ssm":
-        kv = init_kv_cache(cfg, batch, max_len, dev)
-        cache["kv"] = {name: torch.zeros((L,) + a.shape, dtype=a.dtype, device=dev)
+        kv = init_kv_cache(cfg, batch, max_len, torch.device("meta"))
+        cache["kv"] = {name: _zeros((L,) + tuple(a.shape), a.dtype, dev)
                        for name, a in kv.items()}
     if _has_ssd(cfg):
-        cache["ssd"] = _stacked_ssd_cache(cfg, batch, dev)
+        sc = init_ssd_cache(cfg, batch, torch.device("meta"))
+        cache["ssd"] = {name: _zeros((L,) + tuple(a.shape), a.dtype, dev)
+                        for name, a in sc.items()}
     return cache
 
 
@@ -473,6 +559,20 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     return logits, {**cache, "pos": pos + 1}
 
 
+def _seq_whole(e: torch.Tensor, fn) -> torch.Tensor:
+    """``fn(e)`` for stacked cache entries (L,B,n,K,hd) that ``fn`` changes
+    along dim 2 alone; a ``DTensor`` on its local shards with dim 2 whole
+    (torch 2.11's DTensor has no rule for ``roll``)."""
+    if not isinstance(e, DTensor):
+        return fn(e)
+    mesh = e.device_mesh
+    pl = [Replicate() if q == Shard(2) else q for q in e.placements]
+    out = fn(local_shard(e, mesh, pl))
+    shape = list(e.shape)
+    shape[2] = out.shape[2]
+    return from_local_shard(out, mesh, pl, shape)
+
+
 def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
             attention_impl: str = "auto", max_len: Optional[int] = None
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
@@ -508,18 +608,34 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     logits = lm_head(cfg, params, x[:, -1:])
 
     cache = init_cache(cfg, B, max(max_len, 1), x.device)
+    sharded = isinstance(x, DTensor)
     if "kv" in cache:
         Scache = cache["kv"]["k"].shape[2]
         for name in ("k", "v"):
-            e = torch.stack(emitted[name])[:, :, -Scache:]    # (L,B,n,K,hd)
+            e = torch.stack(emitted[name])                     # (L,B,n,K,hd)
+            if e.shape[2] > Scache:
+                e = e[:, :, -Scache:]
             n = e.shape[2]
-            if cfg.sliding_window > 0:
+            if cfg.sliding_window > 0 and (S - n) % Scache:
                 # ring-buffer alignment: position p lives at slot p % Scache;
                 # entries cover positions [S-n, S): roll index 0 -> slot (S-n) % Scache
-                e = torch.roll(e, (S - n) % Scache, dims=2)
-            cache["kv"][name][:, :, :n] = e.to(cache["kv"][name].dtype)
+                e = _seq_whole(e, lambda t: torch.roll(t, (S - n) % Scache, dims=2))
+            c = cache["kv"][name]
+            if sharded:
+                # a DTensor cache is made from the entries, placed as the
+                # cache (a sharded slice cannot be written in place)
+                if n < Scache:
+                    e = _seq_whole(e, lambda t: F.pad(t, (0, 0, 0, 0, 0, Scache - n)))
+                cache["kv"][name] = e.to(c.dtype).redistribute(c.device_mesh, c.placements)
+            else:
+                c[:, :, :n] = e.to(c.dtype)
     if "ssd" in cache:
         for name, a in cache["ssd"].items():
-            a.copy_(torch.stack(emitted[name]))
-    cache["pos"] = torch.full((B,), S, dtype=torch.int32, device=x.device)
+            e = torch.stack(emitted[name])
+            if sharded:
+                cache["ssd"][name] = e.to(a.dtype).redistribute(a.device_mesh, a.placements)
+            else:
+                a.copy_(e)
+    pos = torch.full((B,), S, dtype=torch.int32, device=x.device)
+    cache["pos"] = replicated_like(pos, x)
     return logits, cache

@@ -33,15 +33,16 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
-from torch.distributed.tensor import (DTensor, Placement, Replicate, Shard,
-                                      distribute_tensor)
+from torch.distributed.tensor import (DTensor, Partial, Placement, Replicate,
+                                      Shard, distribute_tensor)
 
 from ..tree import tree_map
 
 __all__ = ["ShardingRules", "use_rules", "current_rules", "active_mesh", "constrain",
            "logical_to_pspec", "placements", "param_shardings",
-           "distribute_tree", "distribute_batch", "mesh_axis_sizes",
-           "local_shard", "replicated_like", "to_plain", "whole_dims",
+           "distribute_tree", "distribute_batch", "batch_placements", "mesh_axis_sizes",
+           "from_local_shard", "local_einsum", "local_shard", "replicated_like", "to_plain",
+           "whole_dims",
            "BASE_RULES"]
 
 MeshAxes = Union[None, str, Tuple[str, ...]]
@@ -256,11 +257,15 @@ def distribute_batch(batch: Mapping[str, torch.Tensor], rules: ShardingRules
     out = {}
     for k, v in batch.items():
         if not isinstance(v, DTensor):
-            axes = ("batch",) + (None,) * (v.dim() - 1)
-            v = distribute_tensor(v, rules.mesh, placements(
-                logical_to_pspec(axes, rules, v.shape), rules.mesh))
+            v = distribute_tensor(v, rules.mesh, batch_placements(v, rules))
         out[k] = v
     return out
+
+
+def batch_placements(v: torch.Tensor, rules: ShardingRules) -> List[Placement]:
+    """A batch tensor's placements: its leading dim over ``"batch"``."""
+    axes = ("batch",) + (None,) * (v.dim() - 1)
+    return placements(logical_to_pspec(axes, rules, v.shape), rules.mesh)
 
 
 def whole_dims(x: torch.Tensor, *dims: int) -> torch.Tensor:
@@ -296,6 +301,63 @@ def local_shard(t: torch.Tensor, mesh: Any, pl: Sequence[Placement],
     if not isinstance(t, DTensor):
         t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
     return t.redistribute(mesh, pl).to_local(grad_placements=grad_pl)
+
+
+def local_einsum(eq: str, x: torch.Tensor, w: torch.Tensor, op=None) -> torch.Tensor:
+    """``torch.einsum(eq, x, w)`` of an activation ``x`` and a weight
+    ``w``; under a mesh (either a ``DTensor``) it runs on this rank's
+    shards and returns a ``DTensor``, where DTensor's own propagation may
+    shard the product's flattened output dims unevenly (a head count the
+    mesh dim does not divide) or flatten a sharded sequence into rows.
+
+    Per mesh dim: ``x`` split over a dim of its own (rows) keeps it and
+    gathers ``w`` (whose gradient is then a partial sum); both split over
+    the same dim keep it (a contracted one gives a ``Partial`` output);
+    ``w`` split over a dim of its own (tensor parallel) keeps it and
+    gathers ``x`` (whose gradient is partial); anything else is gathered.
+    A ``Partial`` operand is reduced first. ``op(x, w)``, where given,
+    computes the product instead of ``torch.einsum`` (the same op as a
+    caller's plain path, so that a mesh of one rank gives its bits)."""
+    op = op or (lambda a, b: torch.einsum(eq, a, b))
+    if not isinstance(x, DTensor) and not isinstance(w, DTensor):
+        return op(x, w)
+    mesh = (x if isinstance(x, DTensor) else w).device_mesh
+    ins, out = eq.replace(" ", "").split("->")
+    xs, ws = ins.split(",")
+    rep = [Replicate()] * mesh.ndim
+    px = x.placements if isinstance(x, DTensor) else rep
+    pw = w.placements if isinstance(w, DTensor) else rep
+    x_pl, w_pl, o_pl, x_g, w_g = [], [], [], [], []
+    for a, b in zip(px, pw):
+        la = xs[a.dim] if isinstance(a, Shard) else None
+        lb = ws[b.dim] if isinstance(b, Shard) else None
+        if la is not None and la == lb:
+            o = Shard(out.index(la)) if la in out else Partial()
+            pick = (a, b, o, a, b)
+        elif la is not None and la not in ws:
+            pick = (a, Replicate(), Shard(out.index(la)), a, Partial())
+        elif lb is not None and lb not in xs:
+            pick = (Replicate(), b, Shard(out.index(lb)), Partial(), b)
+        else:
+            pick = (Replicate(),) * 5
+        for acc, q in zip((x_pl, w_pl, o_pl, x_g, w_g), pick):
+            acc.append(q)
+    y = op(local_shard(x, mesh, x_pl, x_g), local_shard(w, mesh, w_pl, w_g))
+    sizes = dict(zip(xs, x.shape)) | dict(zip(ws, w.shape))
+    return from_local_shard(y, mesh, o_pl, [sizes[c] for c in out])
+
+
+def from_local_shard(t: torch.Tensor, mesh: Any, pl: Sequence[Placement],
+                     shape: Sequence[int]) -> torch.Tensor:
+    """``DTensor.from_local`` of this rank's shard ``t`` of a tensor of
+    global ``shape`` (contiguous), placed by ``pl``; no check, no
+    allocation at the global shape."""
+    strides, acc = [], 1
+    for n in reversed(shape):
+        strides.append(acc)
+        acc *= n
+    return DTensor.from_local(t, mesh, pl, run_check=False, shape=torch.Size(shape),
+                              stride=tuple(reversed(strides)))
 
 
 def to_plain(t: torch.Tensor) -> torch.Tensor:

@@ -28,8 +28,9 @@ from torch.distributed.tensor import DTensor
 from ..device import resolve_device
 from ..models import lm
 from ..models.config import ModelConfig
-from ..parallel.sharding import (active_mesh, current_rules, distribute_batch,
-                                 distribute_tree, param_shardings, to_plain)
+from ..parallel.sharding import (active_mesh, batch_placements, current_rules,
+                                 distribute_batch, distribute_tree, param_shardings,
+                                 to_plain, whole_dims)
 from ..tree import tree_leaves, tree_unflatten
 from .optimizer import Optimizer, clip_by_global_norm
 
@@ -42,11 +43,17 @@ Batch = Dict[str, torch.Tensor]
 
 @dataclass
 class StepConfig:
+    """The step's settings, field for field the JAX package's. ``unroll``
+    and ``micro_unroll`` are its scan unroll factors (its dry run unrolls
+    the layer and microbatch scans for cost fidelity); the port's layers
+    and microbatches are eager Python loops, so they change nothing."""
     microbatches: int = 1
     remat: str = "full"            # none | dots | full
     attention_impl: str = "auto"
     clip_norm: float = 1.0
     accum_dtype: torch.dtype = torch.float32
+    unroll: int = 1
+    micro_unroll: bool = False
 
 
 def init_train_state(cfg: ModelConfig, optimizer: Optimizer, seed: int = 0,
@@ -131,9 +138,17 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
         mu = sc.microbatches
         acc = [torch.zeros_like(p, dtype=sc.accum_dtype) for p in tree_leaves(params)]
         per_mb = []
+        # under a mesh a microbatch is cut from the whole batch and then
+        # spread over the batch's mesh dims, as the unsharded run cuts it
+        # (a mesh dim need not divide the microbatch count)
+        batch = {k: whole_dims(v, 0) for k, v in batch.items()}
         for i in range(mu):
             mb = {k: v.reshape((mu, v.shape[0] // mu) + tuple(v.shape[1:]))[i]
                   for k, v in batch.items()}
+            if active_mesh() is not None:
+                rules = current_rules()
+                mb = {k: v.redistribute(rules.mesh, batch_placements(v, rules))
+                      if isinstance(v, DTensor) else v for k, v in mb.items()}
             grads, metrics = grads_of(params, mb)
             for a, g in zip(acc, grads):
                 a.add_(g.to(sc.accum_dtype))

@@ -170,15 +170,16 @@ from a seed, in phases (each logs its seconds):
      beside the ServeEngine's on the same prompts and slots (one run each
      at a toy load: logged, no claim); the ServeEngine's runs are a path
      of their own;
-  25. dryrun card: the roofline's constants read on the card (dense
-     bf16, TF32 and f32 matmul rates, HBM bytes/s; each at or below the
-     data sheet); the dry run (``repro_torch.launch.dryrun.lower_cell``)
-     of danube's train_4k cell on a fake 16 x 16 process group on this
-     machine's CPU, ok, with its roofline on those constants; and danube
+  25. dryrun card: the card's dense bf16 matmul rate and HBM bytes/s,
+     each at or below the data sheet (the roofline's bound); the dry run
+     (``repro_torch.launch.dryrun.lower_cell``) of danube's train_4k cell
+     on a fake 16 x 16 process group on this machine's CPU, ok, with its
+     roofline on the data sheet and at the measured rates; and danube
      at full width and DRYRUN_LAYERS layers, one AdamW step traced on
      fake tensors and run on the card under the same counter: matmul
-     FLOPs equal, the trace's peak within 10 % of max_memory_allocated,
-     the measured step at least the roofline's;
+     FLOPs equal, bytes within 2 %, the trace's peak within 10 % of
+     max_memory_allocated, the step's profiled device time at least the
+     roofline's bound;
   11. the kernels line: launches on the seventeen paths, in this order
      (phases 5-6, the dense path; 6b, plane cost; 7-7c, the moe path;
      10-10b, the hybrid
@@ -3035,29 +3036,32 @@ def phase_legacy_vs_serve(run):
 DRYRUN_LAYERS = 2                  # [dryrun card]: danube at full width, 2 of 24 layers
 DRYRUN_BATCH, DRYRUN_SEQ = 8, 64
 DRYRUN_MEM_REL = 0.10              # the trace's peak vs max_memory_allocated
+DRYRUN_BYTES_REL = 0.02            # the trace's bytes vs the card's (the plain RMSNorm's copies)
 
 
 def phase_dryrun_card():
     """[dryrun card]: the dry run's roofline held against the card.
-    (1) The constants: the dense bf16, TF32 and f32 matmul rates and HBM
-    bytes/s (``roofline.measure.measure_constants``), each at or below the
-    H100 SXM5 data sheet (a reading above it is a measurement fault).
-    (2) ``lower_cell("h2o-danube-1.8b", "train_4k")`` on a fake 16 x 16
-    process group, on this machine's CPU and torch: status ok, its
-    roofline line on the measured constants. (3) danube at full width and
-    DRYRUN_LAYERS layers, one AdamW step of DRYRUN_BATCH x DRYRUN_SEQ,
-    remat full, dense attention, no mesh (``roofline.measure.card_step``):
-    traced on fake tensors, then run on the card under the same counter:
-    matmul FLOPs equal, the trace's peak within DRYRUN_MEM_REL of
-    ``max_memory_allocated``, the measured step (CUDA events, median of 3
-    after a warm-up) at least the roofline's step time. Returns the
-    RMSNorm launches: 6 steps (warm-up, counted, 3 timed, profiled) of
-    4L+1 each (remat full reruns the layer bodies' norms)."""
+    (1) The card's dense bf16 matmul rate and HBM bytes/s
+    (``roofline.measure.measure_constants``), each at or below the H100
+    SXM5 data sheet, the rates of the roofline's ``H100`` (a reading
+    above it is a measurement fault). (2) ``lower_cell("h2o-danube-1.8b",
+    "train_4k")`` on a fake 16 x 16 process group, on this machine's CPU
+    and torch: status ok, its roofline on the data sheet (the bound) and
+    at the measured rates. (3) danube at full width and DRYRUN_LAYERS
+    layers, one AdamW step of DRYRUN_BATCH x DRYRUN_SEQ, remat full, dense
+    attention, no mesh (``launch.dryrun.card_step``): traced on fake
+    tensors, then run on the card under the same counter: matmul FLOPs
+    equal, bytes within DRYRUN_BYTES_REL (the trace runs RMSNorm's plain
+    version, the card its kernel), the trace's peak within DRYRUN_MEM_REL
+    of ``max_memory_allocated``, and the step's device time (profiled)
+    at least the roofline's bound. Returns the RMSNorm launches: 6 steps
+    (warm-up, counted, 3 timed, profiled) of 4L+1 each (remat full reruns
+    the layer bodies' norms)."""
     import torch
     from repro_torch.configs.registry import get_config
-    from repro_torch.launch.dryrun import lower_cell
-    from repro_torch.roofline.analysis import roofline_terms
-    from repro_torch.roofline.measure import DATASHEET, card_step, measure_constants, spec_from
+    from repro_torch.launch.dryrun import card_step, lower_cell
+    from repro_torch.roofline.analysis import H100, roofline_terms
+    from repro_torch.roofline.measure import DATASHEET, measure_constants, spec_from
 
     card = gpu_line()
     measured = measure_constants()
@@ -3066,36 +3070,42 @@ def phase_dryrun_card():
     for key, sheet in DATASHEET.items():
         check(measured[key] <= sheet, f"[dryrun card] {key} {measured[key]:.4g} above the "
                                       f"data sheet's {sheet:.4g}: a measurement fault")
-    hw = spec_from(measured, card)
+    at_rates = spec_from(measured, card)
 
     t0 = time.perf_counter()
     rec = lower_cell(ARCH, "train_4k")
     trace_s = time.perf_counter() - t0
     check(rec["status"] == "ok", f"[dryrun card] lower_cell: {rec}")
-    r = roofline_terms(rec, hw=hw)
-    log(f"[dryrun card] {ARCH} train_4k {rec['mesh']} (torch {torch.__version__}, "
-        f"{trace_s:.1f} s on the host): compute={r.compute_s:.4f}s "
-        f"memory={r.memory_s:.4f}s collective={r.collective_s:.4f}s dominant={r.dominant} "
-        f"mfu<={r.mfu_bound() * 100:.2f}% useful={r.useful_ratio * 100:.1f}% "
-        f"mem={r.per_device_gib:.3f}GiB flops={rec['flops']:.6g} bytes={rec['hlo_bytes']:.6g} "
-        f"collectives={json.dumps(rec['collectives_by_axis'])}")
+    for hw in (H100, at_rates):
+        r = roofline_terms(rec, hw=hw)
+        log(f"[dryrun card] {ARCH} train_4k {rec['mesh']} on {hw.name} (torch "
+            f"{torch.__version__}, {trace_s:.1f} s on the host): compute={r.compute_s:.4f}s "
+            f"memory={r.memory_s:.4f}s collective={r.collective_s:.4f}s "
+            f"dominant={r.dominant} mfu<={r.mfu_bound() * 100:.2f}% "
+            f"useful={r.useful_ratio * 100:.1f}% mem={r.per_device_gib:.3f}GiB "
+            f"flops={rec['flops']:.6g} bytes={rec['hlo_bytes']:.6g} "
+            f"collectives={json.dumps(rec['collectives_by_axis'])}")
 
     cfg = get_config(ARCH).replace(num_layers=DRYRUN_LAYERS)
-    out = card_step(cfg, DRYRUN_BATCH, DRYRUN_SEQ, hw=hw, seed=SEED)
+    out = card_step(cfg, DRYRUN_BATCH, DRYRUN_SEQ, seed=SEED)
     pred, got = out["predicted"], out["card"]
-    ratio = out["step_ms"] / (1e3 * out["roofline"]["step_time_s"])
+    bound_ms = 1e3 * out["roofline"]["step_time_s"]
     mem_rel = abs(pred["peak_bytes"] - got["max_memory_allocated_bytes"]) / \
         got["max_memory_allocated_bytes"]
     log(f"[dryrun card] danube {DRYRUN_LAYERS}L {DRYRUN_BATCH}x{DRYRUN_SEQ}: "
-        f"{json.dumps({**out, 'measured_over_bound': ratio, 'memory_rel': mem_rel})}")
+        f"{json.dumps({**out, 'device_over_bound': out['device_ms_per_step'] / bound_ms, 'step_over_bound': out['step_ms'] / bound_ms, 'memory_rel': mem_rel})}")
     check(math.isfinite(out["loss"]), f"[dryrun card] loss {out['loss']}")
     check(got["flops"] == pred["flops"] and pred["flops"] > 0,
           f"[dryrun card] matmul FLOPs: card {got['flops']} vs trace {pred['flops']}")
+    check(got["bytes_rel"] <= DRYRUN_BYTES_REL,
+          f"[dryrun card] bytes: trace {pred['bytes']} vs card {got['bytes']} "
+          f"({got['bytes_rel']:.4f} > {DRYRUN_BYTES_REL}); by op {got['bytes_by_op_diff']}")
     check(mem_rel <= DRYRUN_MEM_REL,
           f"[dryrun card] peak: trace {pred['peak_bytes']} vs max_memory_allocated "
           f"{got['max_memory_allocated_bytes']} ({mem_rel:.3f} > {DRYRUN_MEM_REL})")
-    check(ratio >= 1.0, f"[dryrun card] measured step {out['step_ms']:.3f} ms below the "
-                        f"roofline's {1e3 * out['roofline']['step_time_s']:.3f} ms")
+    check(out["device_ms_per_step"] >= bound_ms,
+          f"[dryrun card] the step's device time {out['device_ms_per_step']:.3f} ms below "
+          f"the roofline's bound {bound_ms:.3f} ms")
     return {"flash_attention": 0, "ssd_chunk": 0,
             "rmsnorm": 6 * (4 * cfg.num_layers + 1)}
 

@@ -25,6 +25,10 @@ memory the same way (``memory_method``), which the tests hold against a
 full-depth trace. ``hlo_bytes`` keeps JAX's key and holds the counter's
 bytes: the eager path's operand and result traffic, not a fused module's.
 
+``card_step`` is the one function here that runs on a card: it holds one
+unsharded step's trace against the same step run there (``chip_smoke.py``'s
+``[dryrun card]`` phase and the card tests).
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-34b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod] [--out DIR]
@@ -34,8 +38,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import os
+import statistics
 import sys
 import time
 import traceback
@@ -47,20 +53,21 @@ from ..configs import SHAPES, ShapeSpec, cache_specs, input_specs, shape_applica
 from ..configs.registry import ARCHS, get_config
 from ..models import lm
 from ..models.config import ModelConfig
-from ..parallel.sharding import (ShardingRules, logical_to_pspec, param_shardings,
-                                 placements, use_rules)
+from ..parallel.sharding import (ShardingRules, batch_placements, logical_to_pspec,
+                                 param_shardings, placements, use_rules)
+from ..roofline.analysis import H100, HardwareSpec, roofline_terms
 from ..roofline.counters import (StepCounter, collective_bytes_by_axis_kind,
                                  collective_bytes_by_kind, storage_bytes, tensors_of)
 from ..train.optimizer import Adafactor, AdamW
 from ..train.schedule import cosine_schedule
-from ..train.train_step import (StepConfig, abstract_train_state, make_train_step,
-                                train_state_specs)
+from ..train.train_step import (StepConfig, abstract_train_state, init_train_state,
+                                make_train_step, train_state_specs)
 from ..tree import tree_map
 from .mesh import make_planned_mesh
 
 __all__ = ["BIG_MODEL_PARAMS", "ARCH_RULES", "ARCH_MICROBATCHES", "pick_optimizer",
            "batch_shardings", "cache_shardings", "fake_group", "lower_cell",
-           "run_all", "main"]
+           "card_step", "run_all", "main"]
 
 BIG_MODEL_PARAMS = 60e9   # adafactor above this (HBM), adamw below
 
@@ -92,11 +99,7 @@ def pick_optimizer(cfg: ModelConfig):
 
 def batch_shardings(specs: Dict[str, Any], rules: ShardingRules):
     """Each input's placements: its leading dim over ``"batch"``."""
-    def shard_one(s: torch.Tensor):
-        axes = ["batch"] + [None] * (s.dim() - 1)
-        return placements(logical_to_pspec(axes, rules, s.shape), rules.mesh)
-
-    return tree_map(shard_one, specs)
+    return tree_map(lambda s: batch_placements(s, rules), specs)
 
 
 def cache_shardings(cache_abs: Any, rules: ShardingRules):
@@ -197,6 +200,7 @@ def _trace_once(cfg: ModelConfig, shape: ShapeSpec, mesh, rules,
         "hlo_bytes": float(counter.bytes),
         "collectives": collective_bytes_by_kind(counter),
         "collectives_by_axis": collective_bytes_by_axis_kind(counter),
+        "bytes_by_op": dict(counter.bytes_by_op),
     }
 
 
@@ -231,13 +235,11 @@ def _extrapolate_memory(m1: Dict[str, int], m2: Dict[str, int], L: int) -> Dict[
 
 def lower_cell(arch: str, shape_name: str, mesh=None, multi_pod: bool = False,
                rules_overrides: Optional[Dict[str, Any]] = None,
-               step_cfg: Optional[StepConfig] = None,
-               exact_cost: bool = False) -> Dict[str, Any]:
+               step_cfg: Optional[StepConfig] = None) -> Dict[str, Any]:
     """Trace one cell; returns its record (JAX's keys, and ``trace_s``,
     ``counter``, ``memory_method``).
 
-    Two traces, at depth 1 and 2, extrapolated to the full depth
-    (``exact_cost=True``: one full-depth trace instead). Without a
+    Two traces, at depth 1 and 2, extrapolated to the full depth. Without a
     ``mesh`` a fake process group of the plan's world size is made for
     the call and the mesh comes from the KND path; a given ``mesh`` needs
     the caller's group.
@@ -270,22 +272,95 @@ def lower_cell(arch: str, shape_name: str, mesh=None, multi_pod: bool = False,
         if shape.kind == "train":
             record["optimizer"] = pick_optimizer(cfg).name
 
-        if exact_cost:
-            full = _trace_once(cfg, shape, mesh, rules, step_cfg)
-            for k in ("memory", "flops", "hlo_bytes", "collectives",
-                      "collectives_by_axis", "trace_s"):
-                record[k] = full[k]
-            record["cost_method"] = record["memory_method"] = "full-depth"
-        else:
-            c1 = _trace_once(cfg.replace(num_layers=1), shape, mesh, rules, step_cfg)
-            c2 = _trace_once(cfg.replace(num_layers=2), shape, mesh, rules, step_cfg)
-            record.update(_extrapolate(c1, c2, cfg.num_layers))
-            record["memory"] = _extrapolate_memory(c1["memory"], c2["memory"],
-                                                   cfg.num_layers)
-            record["trace_s"] = round(c1["trace_s"] + c2["trace_s"], 1)
-            record["cost_method"] = record["memory_method"] = "two-point-extrapolation"
+        c1 = _trace_once(cfg.replace(num_layers=1), shape, mesh, rules, step_cfg)
+        c2 = _trace_once(cfg.replace(num_layers=2), shape, mesh, rules, step_cfg)
+        record.update(_extrapolate(c1, c2, cfg.num_layers))
+        record["memory"] = _extrapolate_memory(c1["memory"], c2["memory"], cfg.num_layers)
+        record["trace_s"] = round(c1["trace_s"] + c2["trace_s"], 1)
+        record["cost_method"] = record["memory_method"] = "two-point-extrapolation"
     record["status"] = "ok"
     return record
+
+
+def card_step(cfg: ModelConfig, batch: int, seq: int, hw: HardwareSpec = H100,
+              seed: int = 0, repeats: int = 3) -> Dict[str, Any]:
+    """The dry run held against a card: one AdamW step of ``cfg`` on
+    ``batch`` x ``seq`` tokens (remat full, ``attention_impl="auto"``, no
+    mesh) traced on fake tensors, then run on the card under the same
+    counter (after one warm-up step, the caller's state held as a
+    launcher holds it), then timed (CUDA events, median of ``repeats``)
+    and profiled once (the device time of one step). Returns the trace's
+    and the card's counts, the ops whose bytes differ most between them,
+    the card's peak memory above what was allocated before the state, the
+    trace's roofline on ``hw`` and the measured step ms."""
+    sc = StepConfig(microbatches=1, remat="full", attention_impl="auto")
+    shape = ShapeSpec(f"card_{batch}x{seq}", seq, batch, "train")
+    pred = _trace_once(cfg, shape, None, None, sc)
+    record = {"arch": cfg.name, "shape": shape.name, "kind": "train", "mesh": "1",
+              "axes": [], "devices": 1, "params": cfg.param_count(),
+              "active_params": cfg.active_param_count(), "status": "ok", **pred}
+    roof = roofline_terms(record, hw=hw)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    opt = pick_optimizer(cfg)
+    state = init_train_state(cfg, opt, seed, torch.device("cuda"))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    data = {k: torch.randint(0, cfg.vocab_size, (batch, seq), generator=g, device="cuda",
+                             dtype=torch.int32) for k in ("tokens", "labels")}
+    step = make_train_step(cfg, opt, sc)
+    state, _ = step(state, data)                           # warm-up
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    counter = StepCounter()
+    counter.hold((state, data))
+    with counter:
+        state, metrics = step(state, data)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    loss = float(metrics["loss"])
+    ms = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, _ = step(state, data)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, data)
+        torch.cuda.synchronize()
+    device_us = sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+                    for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    del state, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_ms = statistics.median(ms)
+    return {"predicted": {"flops": pred["flops"], "bytes": pred["hlo_bytes"],
+                          "peak_bytes": pred["memory"]["per_device_bytes"]},
+            "card": {"flops": float(counter.flops), "bytes": float(counter.bytes),
+                     "bytes_rel": abs(pred["hlo_bytes"] - counter.bytes) / max(counter.bytes, 1),
+                     "bytes_by_op_diff": _largest_differences(pred["bytes_by_op"],
+                                                              counter.bytes_by_op),
+                     "counted_peak_bytes": counter.peak_bytes,
+                     "max_memory_allocated_bytes": peak},
+            "roofline": {"compute_s": roof.compute_s, "memory_s": roof.memory_s,
+                         "step_time_s": roof.step_time_s, "dominant": roof.dominant},
+            "step_ms": step_ms, "step_ms_all": ms, "loss": loss,
+            "device_ms_per_step": device_us / 1e3,
+            "device_share": device_us / 1e3 / step_ms if step_ms else None}
+
+
+def _largest_differences(a: Dict[str, int], b: Dict[str, int], n: int = 5
+                         ) -> Dict[str, list]:
+    """The ``n`` ops whose counts differ most between ``a`` and ``b``."""
+    ops = sorted(set(a) | set(b), key=lambda k: -abs(a.get(k, 0) - b.get(k, 0)))
+    return {k: [a.get(k, 0), b.get(k, 0)] for k in ops[:n] if a.get(k, 0) != b.get(k, 0)}
 
 
 def run_all(out_dir: str, multi_pod: bool, archs=None, shapes=None) -> int:
@@ -340,7 +415,6 @@ def main(argv=None) -> None:
                      args.shape or "train_4k",
                      multi_pod=args.multi_pod)
     if rec["status"] == "ok":
-        from ..roofline.analysis import roofline_terms
         r = roofline_terms(rec)
         rec["roofline"] = {"compute_s": r.compute_s, "memory_s": r.memory_s,
                            "collective_s": r.collective_s, "dominant": r.dominant,

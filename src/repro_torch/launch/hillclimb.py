@@ -5,7 +5,7 @@ of iterations (``ITERS``, the JAX package's names and specs), each a
 (cell, rules overrides | mesh | step-config change) traced exactly like
 the dry run (``launch/dryrun.py``: fake tensors over a fake process
 group) and recorded to ``experiments/hillclimb/<iter>.json``; ``main``
-prints each one's roofline line on the H100's constants
+prints each one's roofline line on the H100 data sheet's peaks
 (``roofline/analysis.py``). It runs the named iterations and searches
 nothing.
 

@@ -22,18 +22,18 @@ links; the NIC's is not, as it does not double its DCN.
 MODEL_FLOPS = 6·N·D (dense) or 6·N_active·D (MoE) per train step; the
 ratio MODEL_FLOPS / (FLOPs x ranks) exposes remat and dispatch waste.
 
-The H100's constants, read by ``chip_smoke.py``'s ``[dryrun card]``
-phase (``roofline/measure.py``) on an NVIDIA H100 80GB HBM3 at a power
-limit of 700.00 W (torch 2.11.0+cu128, CUDA 12.8):
-
-  dense bf16 matmul, 8192^3 ``torch.matmul``, median of 5 CUDA-event
-      windows: 766.04 TFLOP/s (``PEAK_BF16_FLOPS``; data sheet 989.4)
-  TF32 (``allow_tf32``): 402.76 TFLOP/s; f32 without TF32: 51.01 TFLOP/s
-      (``PEAK_TF32_FLOPS``, ``PEAK_F32_FLOPS``; the roofline reads the
-      bf16 rate: every cell computes in bf16)
-  HBM, a device-to-device copy of 2 GiB, read + written: 3.0262 TB/s
-      (``HBM_BPS``; data sheet 3.35)
-  device memory, ``total_memory``: 85 017 493 504 bytes (``HBM_BYTES``)
+The rates of :data:`H100` are the NVIDIA H100 SXM5 data sheet's peaks
+(dense bf16 989.4 TFLOP/s, HBM3 3.35 TB/s, at its 700 W), so each term
+is a lower bound on the time the card takes for the counted work. The
+memory term holds only while every op's operands come from HBM: L2 (50
+MB) can serve a small op's operands faster. Measured on an NVIDIA H100
+80GB HBM3 at a power limit of 700.00 W (``chip_smoke.py``'s ``[dryrun
+card]`` phase, ``roofline/measure.py``; torch 2.11.0+cu128, CUDA 12.8),
+the card reaches less: an 8192^3 bf16 ``torch.matmul`` 766.04 TFLOP/s
+and a device-to-device copy of 2 GiB 3.0262 TB/s, read + written. Its
+memory, ``total_memory``, is 85 017 493 504 bytes (``HBM_BYTES``, read
+on that card). The phase prints danube's ``train_4k`` roofline at the
+rates it measures beside the bound.
 
 One card cannot measure links: NVLink 4 (450 GB/s per direction on H100
 SXM) and one 400 Gb/s RoCE NIC per GPU (the CX-7 of
@@ -61,18 +61,17 @@ class HardwareSpec:
     node_size: int             # ranks per node
 
 
-# NVIDIA H100 80GB HBM3, 700.00 W: measured in [dryrun card] (see above)
-PEAK_BF16_FLOPS = 766.041916579e12
-PEAK_TF32_FLOPS = 402.764898986e12
-PEAK_F32_FLOPS = 51.005354848e12
-HBM_BPS = 3.026193297e12
+# NVIDIA H100 SXM5 data sheet (700 W): dense bf16 matmul, HBM3
+PEAK_BF16_FLOPS = 989.4e12
+HBM_BPS = 3.35e12
+# NVIDIA H100 80GB HBM3 (700.00 W): total_memory, read in [dryrun card]
 HBM_BYTES = 85017493504
 # data sheet, not measured (one card has no link to measure)
 NVLINK_BPS = 450e9 * 2         # NVLink 4 per direction, bidirectional ring
 ROCE_BPS = 400e9 / 8           # one 400 Gb/s CX-7 RoCE NIC per GPU
 NODE_GPUS = 8
 
-H100 = HardwareSpec("NVIDIA H100 80GB HBM3 (700.00 W)", PEAK_BF16_FLOPS,
+H100 = HardwareSpec("NVIDIA H100 SXM5 data sheet (700 W)", PEAK_BF16_FLOPS,
                     HBM_BPS, HBM_BYTES, NVLINK_BPS, ROCE_BPS, NODE_GPUS)
 
 

@@ -17,10 +17,12 @@ the step executes, eagerly, on fake tensors over a fake process group
   every rank. Plain-tensor ops (no mesh) count as they are. Elementwise
   work has no formula and is not counted (XLA counts it).
 * **Bytes per rank.** Each op's operand and result bytes at local shapes:
-  the eager path's traffic, every intermediate read and written once.
-  It is not XLA's ``bytes accessed`` of a fused module (which never
-  writes a fused intermediate out); views, allocations and collectives
-  move none here.
+  the eager path's traffic, every intermediate read and written once
+  (``bytes_by_op`` splits them by op). It is not XLA's ``bytes accessed``
+  of a fused module (which never writes a fused intermediate out); views,
+  allocations, collectives and a fake tensor's metadata queries move
+  none here. A hand-written kernel's launch is no ATen op: on a card the
+  counter sees only the allocation of its output.
 * **Collective bytes**, by kind and by mesh axis: each ``c10d_functional``
   or ``c10d`` collective's result bytes (the per-rank payload, as
   ``hlo.py`` sums result shapes), under the mesh dim whose process group
@@ -110,6 +112,7 @@ class StepCounter(TorchDispatchMode):
         super().__init__()
         self.flops = 0
         self.bytes = 0
+        self.bytes_by_op: Dict[str, int] = defaultdict(int)
         self.collectives: Dict[str, Dict[str, float]] = defaultdict(lambda: defaultdict(float))
         self.live_bytes = 0
         self.peak_bytes = 0
@@ -157,31 +160,36 @@ class StepCounter(TorchDispatchMode):
     def __enter__(self):
         # DTensor derives an op's output shape by running it once more at
         # global shapes on fake tensors: no rank runs that, so it is not
-        # counted
+        # counted. Without the hook those ops would count too, so a torch
+        # that lacks it is refused.
         from torch.distributed.tensor._sharding_prop import ShardingPropagator
         name = "_propagate_tensor_meta_non_cached"
-        self._unpatch = None
         orig = getattr(ShardingPropagator, name, None)
-        if orig is not None:
-            def shadow(prop, *a, **kw):
-                self._shadow += 1
-                try:
-                    return orig(prop, *a, **kw)
-                finally:
-                    self._shadow -= 1
-            setattr(ShardingPropagator, name, shadow)
-            self._unpatch = lambda: setattr(ShardingPropagator, name, orig)
+        if orig is None:
+            raise RuntimeError(f"StepCounter: this torch has no ShardingPropagator.{name}; "
+                               f"DTensor's global-shape metadata ops would be counted")
+
+        def shadow(prop, *a, **kw):
+            self._shadow += 1
+            try:
+                return orig(prop, *a, **kw)
+            finally:
+                self._shadow -= 1
+
+        setattr(ShardingPropagator, name, shadow)
+        self._unpatch = lambda: setattr(ShardingPropagator, name, orig)
         return super().__enter__()
 
     def __exit__(self, *exc):
-        if self._unpatch is not None:
-            self._unpatch()
+        self._unpatch()
         return super().__exit__(*exc)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         if isinstance(func, torch._ops.HigherOrderOperator) or self._shadow:
             return func(*args, **kwargs)
+        if func.namespace == "prim":
+            return func(*args, **kwargs)      # a fake tensor's metadata query
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented             # DTensor runs it as local ops
         out = func(*args, **kwargs)
@@ -204,7 +212,9 @@ class StepCounter(TorchDispatchMode):
         if func.is_view or packet in _NO_TRAFFIC:
             return out
         ins = [t for t in tree_flatten((args, kwargs))[0] if isinstance(t, torch.Tensor)]
-        self.bytes += sum(_nbytes(t) for t in ins) + sum(_nbytes(t) for t in outs)
+        n = sum(_nbytes(t) for t in ins) + sum(_nbytes(t) for t in outs)
+        self.bytes += n
+        self.bytes_by_op[packet.__name__] += n
         return out
 
 

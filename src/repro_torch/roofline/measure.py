@@ -1,31 +1,24 @@
-"""The roofline's constants and counts held against one card.
+"""The roofline's rates read on one card.
 
-``measure_constants`` reads a card's dense matmul rates (bf16, TF32, f32
-without TF32) and its HBM bytes/s; ``card_step`` traces one unsharded
-train step on fake tensors (``launch/dryrun.py``'s ``_trace_once``), then
-runs the same step on the card under the same counter and measures it:
-the counted matmul FLOPs of the two must be equal, and the trace's peak
-is held to ``torch.cuda.max_memory_allocated()``. ``chip_smoke.py``'s
-``[dryrun card]`` phase and the card tests call both; nothing here runs
-without a card but the trace.
+``measure_constants`` reads a card's dense bf16 matmul rate and its HBM
+bytes/s, to be held against the data sheet (:data:`DATASHEET`, the
+rates of ``analysis.H100``): a reading above it is a measurement fault.
+``chip_smoke.py``'s ``[dryrun card]`` phase and the card tests call it.
 """
 
 from __future__ import annotations
 
-import gc
 import statistics
-from typing import Any, Dict
+from typing import Dict
 
 import torch
 
-from .analysis import H100, HardwareSpec, roofline_terms
-from .counters import StepCounter
+from .analysis import H100, HardwareSpec
 
-__all__ = ["DATASHEET", "measure_constants", "spec_from", "card_step"]
+__all__ = ["DATASHEET", "measure_constants", "spec_from"]
 
-# NVIDIA H100 SXM5 data sheet: dense (no sparsity) rates, HBM3 bandwidth
-DATASHEET = {"bf16_flops": 989.4e12, "tf32_flops": 494.7e12, "f32_flops": 66.9e12,
-             "hbm_bps": 3.35e12}
+# NVIDIA H100 SXM5 data sheet: dense (no sparsity) bf16, HBM3 bandwidth
+DATASHEET = {"bf16_flops": H100.peak_flops, "hbm_bps": H100.hbm_bps}
 
 
 def _event_ms(fn, reps: int, inner: int) -> float:
@@ -48,25 +41,14 @@ def _event_ms(fn, reps: int, inner: int) -> float:
 
 def measure_constants(n: int = 8192, copy_gib: float = 2.0, reps: int = 5
                       ) -> Dict[str, float]:
-    """The card's dense matmul FLOP/s (an n x n x n ``torch.matmul``, median
-    of ``reps`` windows) in bf16, in TF32 (``allow_tf32``) and in f32
-    without TF32; its HBM bytes/s (a device-to-device copy of
-    ``copy_gib`` GiB: read + written); its memory (``total_memory``)."""
+    """The card's dense bf16 matmul FLOP/s (an n x n x n ``torch.matmul``,
+    median of ``reps`` windows), its HBM bytes/s (a device-to-device copy
+    of ``copy_gib`` GiB: read + written) and its memory (``total_memory``)."""
     dev = torch.device("cuda")
-    out: Dict[str, float] = {}
-    prev = torch.backends.cuda.matmul.allow_tf32
-    try:
-        for key, dtype, tf32 in (("bf16_flops", torch.bfloat16, False),
-                                 ("tf32_flops", torch.float32, True),
-                                 ("f32_flops", torch.float32, False)):
-            torch.backends.cuda.matmul.allow_tf32 = tf32
-            a = torch.randn(n, n, device=dev, dtype=dtype)
-            b = torch.randn(n, n, device=dev, dtype=dtype)
-            ms = _event_ms(lambda: torch.matmul(a, b), reps, 10 if dtype == torch.bfloat16 else 3)
-            out[key] = 2.0 * n ** 3 / (ms / 1e3)
-            del a, b
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+    a = torch.randn(n, n, device=dev, dtype=torch.bfloat16)
+    b = torch.randn(n, n, device=dev, dtype=torch.bfloat16)
+    out = {"bf16_flops": 2.0 * n ** 3 / (_event_ms(lambda: torch.matmul(a, b), reps, 10) / 1e3)}
+    del a, b
     x = torch.empty(int(copy_gib * 2**30) // 4, device=dev, dtype=torch.float32)
     y = torch.empty_like(x)
     ms = _event_ms(lambda: y.copy_(x), reps, 5)
@@ -78,81 +60,8 @@ def measure_constants(n: int = 8192, copy_gib: float = 2.0, reps: int = 5
 
 
 def spec_from(measured: Dict[str, float], name: str) -> HardwareSpec:
-    """The H100 spec with the measured bf16 rate, HBM rate and memory
-    (the links stay the data sheet's)."""
+    """The H100 spec at the measured bf16 rate, HBM rate and memory (the
+    links stay the data sheet's): what the card reaches, not a bound."""
     return HardwareSpec(name, measured["bf16_flops"], measured["hbm_bps"],
                         measured["hbm_bytes"], H100.intra_bps, H100.inter_bps,
                         H100.node_size)
-
-
-def card_step(cfg: Any, batch: int, seq: int, hw: HardwareSpec = H100,
-              seed: int = 0, repeats: int = 3) -> Dict[str, Any]:
-    """One AdamW step of ``cfg`` on ``batch`` x ``seq`` tokens (remat full,
-    ``attention_impl="auto"``, no mesh): traced on fake tensors, then run
-    on the card under the same counter (after one warm-up step, the
-    caller's state held as a launcher holds it), then timed (CUDA events,
-    median of ``repeats``). Returns the trace's and the card's counts,
-    the card's peak memory above what was allocated before the state, the
-    roofline of the trace on ``hw``, and the measured step ms."""
-    from ..configs import ShapeSpec
-    from ..launch.dryrun import _trace_once, pick_optimizer
-    from ..train.train_step import StepConfig, init_train_state, make_train_step
-
-    sc = StepConfig(microbatches=1, remat="full", attention_impl="auto")
-    shape = ShapeSpec(f"card_{batch}x{seq}", seq, batch, "train")
-    pred = _trace_once(cfg, shape, None, None, sc)
-    record = {"arch": cfg.name, "shape": shape.name, "kind": "train", "mesh": "1",
-              "axes": [], "devices": 1, "params": cfg.param_count(),
-              "active_params": cfg.active_param_count(), "status": "ok", **pred}
-    roof = roofline_terms(record, hw=hw)
-
-    gc.collect()
-    torch.cuda.empty_cache()
-    base = torch.cuda.memory_allocated()
-    opt = pick_optimizer(cfg)
-    state = init_train_state(cfg, opt, seed, torch.device("cuda"))
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    data = {k: torch.randint(0, cfg.vocab_size, (batch, seq), generator=g, device="cuda",
-                             dtype=torch.int32) for k in ("tokens", "labels")}
-    step = make_train_step(cfg, opt, sc)
-    state, _ = step(state, data)                           # warm-up
-    torch.cuda.synchronize()
-    gc.collect()
-    torch.cuda.reset_peak_memory_stats()
-    counter = StepCounter()
-    counter.hold((state, data))
-    with counter:
-        state, metrics = step(state, data)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() - base
-    loss = float(metrics["loss"])
-    ms = []
-    for _ in range(repeats):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        state, _ = step(state, data)
-        end.record()
-        end.synchronize()
-        ms.append(start.elapsed_time(end))
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        state, _ = step(state, data)
-        torch.cuda.synchronize()
-    device_us = sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
-                    for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
-    del state, data
-    gc.collect()
-    torch.cuda.empty_cache()
-    step_ms = statistics.median(ms)
-    return {"predicted": {"flops": pred["flops"], "bytes": pred["hlo_bytes"],
-                          "peak_bytes": pred["memory"]["per_device_bytes"]},
-            "card": {"flops": float(counter.flops), "bytes": float(counter.bytes),
-                     "counted_peak_bytes": counter.peak_bytes,
-                     "max_memory_allocated_bytes": peak},
-            "roofline": {"compute_s": roof.compute_s, "memory_s": roof.memory_s,
-                         "step_time_s": roof.step_time_s, "dominant": roof.dominant},
-            "step_ms": step_ms, "step_ms_all": ms, "loss": loss,
-            "device_ms_per_step": device_us / 1e3,
-            "device_share": device_us / 1e3 / step_ms if step_ms else None}

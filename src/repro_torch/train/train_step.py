@@ -13,24 +13,26 @@ Under sharding rules with a mesh (:func:`..parallel.sharding.use_rules`)
 as ``DTensor``s placed by :func:`train_state_specs`, and the step
 distributes each batch tensor over ``"batch"``; the gradients take their
 parameters' placements, and the metrics come back as plain tensors, the
-same on every rank.
+same on every rank. A batch that comes as ``DTensor``s (the dry run's)
+is cut into microbatches on each rank's shard where they split evenly
+(:func:`_microbatches`).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..device import resolve_device
 from ..models import lm
 from ..models.config import ModelConfig
 from ..parallel.sharding import (active_mesh, batch_placements, current_rules,
-                                 distribute_batch, distribute_tree, param_shardings,
-                                 to_plain, whole_dims)
+                                 distribute_batch, distribute_tree, from_local_shard,
+                                 param_shardings, to_plain, whole_dims)
 from ..tree import tree_leaves, tree_unflatten
 from .optimizer import Optimizer, clip_by_global_norm
 
@@ -43,17 +45,11 @@ Batch = Dict[str, torch.Tensor]
 
 @dataclass
 class StepConfig:
-    """The step's settings, field for field the JAX package's. ``unroll``
-    and ``micro_unroll`` are its scan unroll factors (its dry run unrolls
-    the layer and microbatch scans for cost fidelity); the port's layers
-    and microbatches are eager Python loops, so they change nothing."""
     microbatches: int = 1
     remat: str = "full"            # none | dots | full
     attention_impl: str = "auto"
     clip_norm: float = 1.0
     accum_dtype: torch.dtype = torch.float32
-    unroll: int = 1
-    micro_unroll: bool = False
 
 
 def init_train_state(cfg: ModelConfig, optimizer: Optimizer, seed: int = 0,
@@ -138,17 +134,7 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
         mu = sc.microbatches
         acc = [torch.zeros_like(p, dtype=sc.accum_dtype) for p in tree_leaves(params)]
         per_mb = []
-        # under a mesh a microbatch is cut from the whole batch and then
-        # spread over the batch's mesh dims, as the unsharded run cuts it
-        # (a mesh dim need not divide the microbatch count)
-        batch = {k: whole_dims(v, 0) for k, v in batch.items()}
-        for i in range(mu):
-            mb = {k: v.reshape((mu, v.shape[0] // mu) + tuple(v.shape[1:]))[i]
-                  for k, v in batch.items()}
-            if active_mesh() is not None:
-                rules = current_rules()
-                mb = {k: v.redistribute(rules.mesh, batch_placements(v, rules))
-                      if isinstance(v, DTensor) else v for k, v in mb.items()}
+        for mb in _microbatches(batch, mu):
             grads, metrics = grads_of(params, mb)
             for a, g in zip(acc, grads):
                 a.add_(g.to(sc.accum_dtype))
@@ -175,3 +161,45 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
                  "step": state["step"] + 1}, metrics)
 
     return train_step
+
+
+def _cut_locally(v: DTensor, mu: int) -> bool:
+    """Whether every rank can cut ``mu`` equal microbatches from its own
+    shard of ``v``: only its leading dim is sharded, over m ranks in all,
+    and m x mu divides it."""
+    m = 1
+    for size, p in zip(v.device_mesh.shape, v.placements):
+        if isinstance(p, Shard) and p.dim == 0:
+            m *= size
+        elif not isinstance(p, Replicate):
+            return False
+    return v.shape[0] % (m * mu) == 0
+
+
+def _microbatches(batch: Batch, mu: int) -> List[Batch]:
+    """``batch`` cut into ``mu`` equal microbatches. A plain tensor (the
+    whole batch on every rank) is cut into contiguous parts, as the JAX
+    package cuts it. A ``DTensor`` whose shards each split into ``mu``
+    parts (:func:`_cut_locally`) is cut on every rank's shard, moving no
+    row: microbatch i holds each shard's i-th part. The rows are the same
+    in all, and so is each gradient's mean over them; which rows share a
+    microbatch differs, and an MoE's capacity per microbatch sees that.
+    Any other ``DTensor`` is made whole, cut as a plain tensor is, and
+    each part spread over the batch's mesh dims again."""
+    out: List[Batch] = [{} for _ in range(mu)]
+    for k, v in batch.items():
+        shape = (v.shape[0] // mu,) + tuple(v.shape[1:])
+        if isinstance(v, DTensor) and _cut_locally(v, mu):
+            local = v.to_local()
+            n = local.shape[0] // mu
+            for i in range(mu):
+                out[i][k] = from_local_shard(local[i * n:(i + 1) * n], v.device_mesh,
+                                             v.placements, shape)
+            continue
+        parts = whole_dims(v, 0).reshape((mu,) + shape)
+        for i in range(mu):
+            mb = parts[i]
+            if isinstance(mb, DTensor):
+                mb = mb.redistribute(mb.device_mesh, batch_placements(mb, current_rules()))
+            out[i][k] = mb
+    return out

@@ -271,14 +271,79 @@ def test_unsharded_matmul_flops_equal_a_hand_count():
 
 def test_sharded_flops_are_the_unsharded_over_the_ranks(no_group_left):
     """On a 2 x 2 mesh every product of the smoke step is split over all 4
-    ranks (batch on data; sequence, heads or hidden dim on model)."""
+    ranks (batch on data; sequence, heads or hidden dim on model): the
+    hand count over 4, with the counter's hook on DTensor's global-shape
+    metadata ops in place."""
     cfg, shape, sc = smoke_cell()
     plain = dryrun._trace_once(cfg, shape, None, None, sc)
     with dryrun.fake_group(4):
         mesh = fake_mesh((2, 2), ("data", "model"))
         got = dryrun._trace_once(cfg, shape, mesh, ShardingRules(mesh=mesh), sc)
-    assert got["flops"] == plain["flops"] / 4
+    assert got["flops"] == plain["flops"] / 4 == \
+        hand_matmul_flops(cfg, shape.global_batch, shape.seq_len) / 4
     assert set(got["collectives_by_axis"]) == {"data", "model"}
+
+
+def test_counter_refuses_a_torch_without_its_dtensor_hook(monkeypatch):
+    """Without the hook DTensor's global-shape metadata ops would count
+    as this rank's work and inflate every sharded cell: the counter
+    raises instead, and leaves no mode entered."""
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+    monkeypatch.delattr(ShardingPropagator, "_propagate_tensor_meta_non_cached")
+    with pytest.raises(RuntimeError, match="_propagate_tensor_meta_non_cached"):
+        with StepCounter():
+            pass
+    assert torch.ones(2).sum().item() == 2
+
+
+def test_fake_metadata_queries_move_no_bytes():
+    """A fake tensor answers ``.device`` through a ``prim`` op: the trace's
+    bytes equal those of the same step run on real CPU tensors."""
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    cfg, shape, sc = smoke_cell(remat="full")
+    got = dryrun._trace_once(cfg, shape, None, None, sc)
+    opt = dryrun.pick_optimizer(cfg)
+    state = init_train_state(cfg, opt, 0, torch.device("cpu"))
+    g = torch.Generator().manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab_size, (shape.global_batch, shape.seq_len),
+                              generator=g, dtype=torch.int32) for k in ("tokens", "labels")}
+    c = StepCounter()
+    with c:
+        make_train_step(cfg, opt, sc)(state, batch)
+    assert got["hlo_bytes"] == c.bytes and got["flops"] == c.flops
+    assert got["bytes_by_op"] == dict(c.bytes_by_op)
+
+
+@pytest.mark.parametrize("batch,mu,local", [(8, 2, True), (4, 4, False)])
+def test_microbatches_of_a_sharded_batch(no_group_left, batch, mu, local):
+    """A ``DTensor`` batch on a 2 x 2 mesh (rows over data): where 2 x mu
+    divides the rows each rank cuts its microbatches from its own shard
+    and moves nothing; otherwise the batch is gathered once over data and
+    cut as the JAX package cuts it. Each microbatch is placed as a batch
+    (one row of 4 is replicated: data does not divide it)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.parallel.sharding import batch_placements, use_rules
+    from repro_torch.train.train_step import _microbatches
+    with dryrun.fake_group(4):
+        mesh = fake_mesh((2, 2), ("data", "model"))
+        rules = ShardingRules(mesh=mesh)
+        x = torch.arange(batch * 3, dtype=torch.int32).reshape(batch, 3)
+        v = DTensor.from_local(x[:batch // 2], mesh, [Shard(0), Replicate()], run_check=False)
+        with use_rules(rules), StepCounter(mesh) as c:
+            mbs = _microbatches({"tokens": v}, mu)
+        want = [Shard(0) if local else Replicate(), Replicate()]
+        assert want == list(batch_placements(mbs[0]["tokens"], rules))
+    assert len(mbs) == mu
+    for i, mb in enumerate(mbs):
+        t = mb["tokens"]
+        assert tuple(t.shape) == (batch // mu, 3)
+        assert list(t.placements) == want
+        if local:
+            n = batch // 2 // mu
+            assert torch.equal(t.to_local(), x[i * n:(i + 1) * n])
+    assert (collective_bytes_by_axis_kind(c) == {}) == local
+    if not local:
+        assert set(collective_bytes_by_axis_kind(c)) == {"data"}
 
 
 def test_multi_pod_traffic_is_recorded_under_pod(no_group_left):

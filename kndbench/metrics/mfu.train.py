@@ -1,0 +1,14 @@
+"""Useful model FLOPs of the optimizer steps in the window (forward and
+backward, no recompute) over the window's length at the bf16 tensor-core
+peak, in %."""
+
+from kndbench import peaks
+
+MOVES = "train_tokens_per_s"
+
+
+def read(r):
+    c = r["counters"]
+    if not c.get("model_flops"):
+        return None
+    return 100.0 * c["model_flops"] / (c["window_s"] * peaks.BF16_FLOPS)

@@ -34,6 +34,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.rmsnorm.ops import rmsnorm as rmsnorm_op
 from ..kernels.ssd_scan.ops import shard_layout, ssd_chunk
+from ..obs import span
 from ..parallel.sharding import (constrain, current_rules, from_local_shard, local_einsum,
                                  local_shard, logical_to_pspec, mesh_axis_sizes,
                                  placements, replicated_like, whole_dims)
@@ -839,28 +840,29 @@ def ssd_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
     xs, z, Bm, Cm, dt = _ssd_in(cfg, p, x)
     xs = constrain(xs, "batch", "seq", "act_ff")
-    xh, Bc, Cc, dtc, dAc, conv_in = _batch_shards(
-        functools.partial(_ssd_chunks, cfg, S), (xs, Bm, Cm, dt),
-        (p["conv_w"], p["conv_b"], p["dt_bias"], p["a_log"]))
-    xh = constrain(xh, "batch", None, None, "act_heads", None)
-    dtc = constrain(dtc, "batch", None, None, "act_heads")
-    dAc = constrain(dAc, "batch", None, None, "act_heads")
+    with span("model.ssd.scan") as s:
+        xh, Bc, Cc, dtc, dAc, conv_in = _batch_shards(
+            functools.partial(_ssd_chunks, cfg, S), s.inputs(xs, Bm, Cm, dt),
+            (p["conv_w"], p["conv_b"], p["dt_bias"], p["a_log"]))
+        xh = constrain(xh, "batch", None, None, "act_heads", None)
+        dtc = constrain(dtc, "batch", None, None, "act_heads")
+        dAc = constrain(dAc, "batch", None, None, "act_heads")
 
-    y_diag, chunk_states, decays = ssd_chunk(Cc, Bc, xh, dtc, dAc)
-    if isinstance(xh, DTensor):
-        mesh, lay = xh.device_mesh, shard_layout(xh)
-        y, state = _inter_chunk(local_shard(Cc, mesh, lay.cb, lay.cb_grad),
-                                *(local_shard(t, mesh, pl) for t, pl in (
-                                    (dAc, lay.x), (y_diag, lay.x),
-                                    (chunk_states, lay.heads), (decays, lay.heads))))
-        y = DTensor.from_local(y, mesh, lay.x, run_check=False)
-        state = DTensor.from_local(state, mesh, [Shard(1) if q == Shard(2) else q
-                                                 for q in lay.heads], run_check=False)
-    else:
-        y, state = _inter_chunk(Cc, dAc, y_diag, chunk_states, decays)
-    nq = xh.shape[1] * xh.shape[2]
-    y = y.reshape(B, nq, H, P)[:, :S]
-    y = y + xh.reshape(B, nq, H, P)[:, :S].float() * p["d_skip"][:, None]
+        y_diag, chunk_states, decays = ssd_chunk(Cc, Bc, xh, dtc, dAc)
+        if isinstance(xh, DTensor):
+            mesh, lay = xh.device_mesh, shard_layout(xh)
+            y, state = _inter_chunk(local_shard(Cc, mesh, lay.cb, lay.cb_grad),
+                                    *(local_shard(t, mesh, pl) for t, pl in (
+                                        (dAc, lay.x), (y_diag, lay.x),
+                                        (chunk_states, lay.heads), (decays, lay.heads))))
+            y = DTensor.from_local(y, mesh, lay.x, run_check=False)
+            state = DTensor.from_local(state, mesh, [Shard(1) if q == Shard(2) else q
+                                                     for q in lay.heads], run_check=False)
+        else:
+            y, state = _inter_chunk(Cc, dAc, y_diag, chunk_states, decays)
+        nq = xh.shape[1] * xh.shape[2]
+        y = y.reshape(B, nq, H, P)[:, :S]
+        y = s.output(y + xh.reshape(B, nq, H, P)[:, :S].float() * p["d_skip"][:, None])
     out = constrain(_gated_out(cfg, p, y.reshape(B, S, di), z),
                     "batch", "seq", "act_embed")
     if return_state:

@@ -35,6 +35,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
+from ..obs import span
 from ..parallel.sharding import (active_mesh, constrain, current_rules, from_local_shard,
                                  local_einsum, local_shard, logical_to_pspec, placements,
                                  replicated_like, use_rules)
@@ -158,10 +159,14 @@ def _residual(cfg: ModelConfig, lp: Params, x: torch.Tensor,
         att = 0.5 * (att + y_ssd)
     x = x + att
     h2 = rmsnorm(lp["norm2"], x, cfg.norm_eps)
-    if cfg.num_experts > 0:
-        y, aux = moe_apply(cfg, lp["moe"], h2)
-        return x + y, aux
-    return x + mlp_apply(cfg, lp["mlp"], h2), {}
+    with span("model.mlp") as s:
+        h2 = s.inputs(h2)
+        if cfg.num_experts > 0:
+            y, aux = moe_apply(cfg, lp["moe"], h2)
+        else:
+            y, aux = mlp_apply(cfg, lp["mlp"], h2), {}
+        y = s.output(y)
+    return x + y, aux
 
 
 def _layer_body(cfg: ModelConfig, lp: Params, x: torch.Tensor,
@@ -177,12 +182,20 @@ def _layer_body(cfg: ModelConfig, lp: Params, x: torch.Tensor,
     h = _rows(rmsnorm(lp["norm1"], x, cfg.norm_eps))
     att = y_ssd = st = None
     if _has_ssd(cfg):
-        if return_state:
-            y_ssd, st = ssd_apply(cfg, lp["ssd"], h, return_state=True)
-        else:
-            y_ssd = ssd_apply(cfg, lp["ssd"], h)
+        with span("model.ssd") as s:
+            # the attention reads the marked rows too, so that the two
+            # mixers' gradients meet in one sum, in the order they meet
+            # unmarked
+            h = s.inputs(h)
+            if return_state:
+                y_ssd, st = ssd_apply(cfg, lp["ssd"], h, return_state=True)
+            else:
+                y_ssd = ssd_apply(cfg, lp["ssd"], h)
+            y_ssd = s.output(y_ssd)
     if cfg.family != "ssm":
-        att = attention_apply(cfg, lp["attn"], h, positions, attention_impl)
+        with span("model.attention") as s:
+            att = s.output(attention_apply(cfg, lp["attn"], s.inputs(h), positions,
+                                           attention_impl))
     x, aux = _residual(cfg, lp, x, att, y_ssd)
     return x, aux, st
 
@@ -299,7 +312,8 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     layer bodies are checkpointed by ``remat`` only where a gradient is
     being recorded; the values do not depend on it. Every family runs
     under a mesh as without one."""
-    x, positions = embed_tokens(cfg, params, batch)
+    with span("model.embed"):
+        x, positions = embed_tokens(cfg, params, batch)
     # JAX sums the layers' aux losses onto zeros; the first layer's start
     # the sum here (0 + v is v), so that no plain zero meets a DTensor
     aux_acc: Dict[str, torch.Tensor] = {}
@@ -317,8 +331,9 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
         x, aux = body(lp, x)
         for name, v in aux.items():
             aux_acc[name] = aux_acc[name] + v if name in aux_acc else v
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return lm_head(cfg, params, x), aux_acc
+    with span("model.head"):
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        return lm_head(cfg, params, x), aux_acc
 
 
 def cross_entropy(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
@@ -382,16 +397,18 @@ def train_loss(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     weights = batch.get("weights")
     # logits cover [img_tokens, text] (vision); labels are text-only
     prefix = logits.shape[1] - labels.shape[1]
-    if isinstance(logits, DTensor):
-        loss = _cross_entropy_sharded(logits, labels, weights, prefix)
-    elif cfg.frontend == "audio":
-        loss = cross_entropy(
-            cfg, logits.reshape(logits.shape[0], -1, logits.shape[-1]),
-            labels.reshape(labels.shape[0], -1),
-            None if weights is None
-            else weights.repeat_interleave(cfg.num_codebooks, dim=-1))
-    else:
-        loss = cross_entropy(cfg, logits[:, prefix:] if prefix else logits, labels, weights)
+    with span("model.loss"):
+        if isinstance(logits, DTensor):
+            loss = _cross_entropy_sharded(logits, labels, weights, prefix)
+        elif cfg.frontend == "audio":
+            loss = cross_entropy(
+                cfg, logits.reshape(logits.shape[0], -1, logits.shape[-1]),
+                labels.reshape(labels.shape[0], -1),
+                None if weights is None
+                else weights.repeat_interleave(cfg.num_codebooks, dim=-1))
+        else:
+            loss = cross_entropy(cfg, logits[:, prefix:] if prefix else logits, labels,
+                                 weights)
     metrics = {"ce_loss": loss}
     for name, v in aux.items():
         loss = loss + v  # aux coefficients already applied per layer
@@ -521,20 +538,24 @@ def decode_chunk(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         for a in ssd.values():
             a.masked_fill_(reset_slots.reshape((1, -1) + (1,) * (a.dim() - 2)), 0)
 
-    x, _ = embed_tokens(cfg, params, {"tokens": tokens})
+    with span("model.embed"):
+        x, _ = embed_tokens(cfg, params, {"tokens": tokens})
     for li in range(cfg.num_layers):
         lp = _layer(params["layers"], li)
         hn = rmsnorm(lp["norm1"], x, cfg.norm_eps)
         att = y_ssd = None
         if _has_ssd(cfg):
-            y_ssd, new_ssd = ssd_decode_chunk(cfg, lp["ssd"], hn, _layer(ssd, li), adv)
-            _write_layer(ssd, li, new_ssd)
+            with span("model.ssd"):
+                y_ssd, new_ssd = ssd_decode_chunk(cfg, lp["ssd"], hn, _layer(ssd, li), adv)
+                _write_layer(ssd, li, new_ssd)
         if cfg.family != "ssm":
-            att, _ = attention_decode_paged(cfg, lp["attn"], hn, _layer(kv, li),
-                                            block_table, pos, adv)
+            with span("model.attention"):
+                att, _ = attention_decode_paged(cfg, lp["attn"], hn, _layer(kv, li),
+                                                block_table, pos, adv)
         x, _ = _residual(cfg, lp, x, att, y_ssd)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return lm_head(cfg, params, x), cache
+    with span("model.head"):
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        return lm_head(cfg, params, x), cache
 
 
 def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,

@@ -14,13 +14,18 @@ forbids declaring one name twice under ``src/``. Import surface:
   :func:`install_tracer` / :func:`installed_tracer`,
   :func:`chrome_trace` / :func:`validate_spans` /
   :func:`spans_from_store`.
+* program spans — :func:`span` opens ``knd.<name>`` ranges on the
+  clock of a ``torch.profiler`` profile (and their backward twins
+  ``knd.<name>.bwd``) while one records, and costs one flag read
+  otherwise.
 * :func:`dump_artifacts` — what ``--obs-dir`` entry points call at
   exit; writes ``metrics.prom`` / ``metrics.json`` / ``spans.json``
   for ``scripts/obsctl.py`` to consume out-of-process.
 
 This package imports nothing from the rest of ``repro_torch`` (nor
 anything of ``repro``), so every plane can instrument itself without
-import cycles. It needs only the standard library.
+import cycles. It needs only the standard library; :func:`span` imports
+torch only while a profile records.
 """
 
 from __future__ import annotations
@@ -34,9 +39,9 @@ from .registry import (                                        # noqa: F401
     counter, default_registry, gauge, histogram, install, installed,
     quantile)
 from .trace import (                                           # noqa: F401
-    TRACKED_CONDITIONS, Span, Tracer, active_tracer, chrome_trace,
-    emit, install_tracer, installed_tracer, spans_from_store,
-    validate_spans)
+    NO_SPAN, SPAN_PREFIX, TRACKED_CONDITIONS, Span, Tracer, active_tracer,
+    chrome_trace, emit, install_tracer, installed_tracer, span,
+    spans_from_store, validate_spans)
 
 METRICS_PROM = "metrics.prom"
 METRICS_JSON = "metrics.json"

@@ -11,6 +11,12 @@ The tracer has two feeds:
   calls the module-level :func:`emit`, which is a no-op unless a tracer
   is installed (same ``install``/``installed`` idiom as ``api/chaos``).
 
+Separately from the tracer, :func:`span` marks the program's own layers
+(engine phases, model sub-layers, train-step phases) as ranges named
+``knd.<name>`` on the clock of a ``torch.profiler`` profile, beside the
+device activity the profile records; outside a profile it costs one
+flag read.
+
 :meth:`Tracer.spans` reconstructs per-object span trees:
 
 * claim/workload/node lifecycle — ``submit`` (ADDED) through each
@@ -34,7 +40,9 @@ cycle offline from a recovered store's condition timestamps (what
 
 from __future__ import annotations
 
+import itertools
 import json
+import sys
 import threading
 from contextlib import contextmanager
 from dataclasses import dataclass, field
@@ -45,6 +53,7 @@ __all__ = [
     "TRACKED_CONDITIONS", "Span", "Tracer", "emit",
     "install_tracer", "installed_tracer", "active_tracer",
     "chrome_trace", "validate_spans", "spans_from_store",
+    "SPAN_PREFIX", "NO_SPAN", "span",
 ]
 
 # Condition types that advance an object's lifecycle, in canonical
@@ -362,3 +371,186 @@ def emit(kind: str, name: str, event: str, **args: Any) -> None:
     t = _active
     if t is not None:
         t.emit(kind, name, event, **args)
+
+
+# ---------------------------------------------------------------------------
+# Program spans on the profiler's clock
+# ---------------------------------------------------------------------------
+
+SPAN_PREFIX = "knd."
+
+
+class _NoSpan:
+    """What :func:`span` returns when no profile records: a context that
+    does nothing and hands tensors back unmarked."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NoSpan":
+        return self
+
+    def __exit__(self, *exc: Any) -> bool:
+        return False
+
+    def inputs(self, *tensors: Any) -> Any:
+        return tensors[0] if len(tensors) == 1 else tensors
+
+    def output(self, tensor: Any) -> Any:
+        return tensor
+
+
+NO_SPAN = _NoSpan()
+
+# torch.autograd.profiler once torch is loaded. Its module-level
+# ``_is_profiler_enabled`` is True, in every thread, while a
+# torch.profiler (or autograd profiler) session records in the process.
+_profiler_module: Any = None
+
+
+def span(name: str) -> Any:
+    """A ``knd.<name>`` range around the ``with`` block while a profile
+    records; the shared :data:`NO_SPAN` otherwise, after one flag read.
+
+    The range also carries the block's backward: mark the sub-layer's
+    inputs with ``s.inputs(...)`` and its output with ``s.output(...)``,
+    and ``knd.<name>.bwd`` opens on autograd's thread when the output's
+    gradient arrives and closes there when the inputs' gradients are
+    complete. The marks are identity autograd nodes, added only while a
+    profile records and a gradient is being recorded."""
+    mod = _profiler_module or _bind_profiler()
+    if mod is None or not mod._is_profiler_enabled:
+        return NO_SPAN
+    return _Span(name)
+
+
+def _bind_profiler() -> Any:
+    # no import: while torch is not loaded no profile can be recording
+    global _profiler_module
+    _profiler_module = sys.modules.get("torch.autograd.profiler")
+    return _profiler_module
+
+
+def _range(name: str) -> Any:
+    """An unopened profiler range. ``RecordFunctionFast`` records a
+    plain CPU op: unlike ``record_function``'s user annotation it gets
+    no device-side copy, whose interval would read as device activity,
+    and it costs a tenth as much."""
+    import torch
+    return torch._C._profiler._RecordFunctionFast(SPAN_PREFIX + name)
+
+
+# Orders the opening of spans and of backward ranges, so that a span
+# left by an exception closes the backward ranges opened inside it and
+# no older one (a remat recompute inside a backward range stops early
+# by raising).
+_opened = itertools.count()
+_open_backward: Dict[int, "_BackwardRange"] = {}
+_open_lock = threading.Lock()
+
+
+class _Span:
+    __slots__ = ("name", "_range", "_seq", "_bwd")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._range = _range(name)
+        self._seq = 0
+        self._bwd: Optional[_BackwardRange] = None
+
+    def __enter__(self) -> "_Span":
+        self._seq = next(_opened)
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, exc_type: Any, exc: Any, tb: Any) -> bool:
+        if exc_type is not None:
+            with _open_lock:
+                left = [r for seq, r in _open_backward.items() if seq > self._seq]
+            for r in left:
+                r.close()
+        self._range.__exit__(exc_type, exc, tb)
+        return False
+
+    def inputs(self, *tensors: Any) -> Any:
+        import torch
+        if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+            self._bwd = _BackwardRange(self.name + ".bwd")
+            _, close_on_grad = _marks()
+            tensors = close_on_grad.apply(self._bwd, *tensors)
+        return tensors[0] if len(tensors) == 1 else tensors
+
+    def output(self, tensor: Any) -> Any:
+        if self._bwd is None or not tensor.requires_grad:
+            return tensor
+        open_on_grad, _ = _marks()
+        return open_on_grad.apply(self._bwd, tensor)
+
+
+class _BackwardRange:
+    """One sub-layer's backward range: opened by its output's mark,
+    closed by its inputs' mark, both on autograd's thread; else when the
+    backward pass ends (a pass that needs no gradient of the inputs
+    never runs their mark)."""
+
+    __slots__ = ("name", "_range", "_seq")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._range: Any = None
+        self._seq = 0
+
+    def open(self) -> None:
+        import torch
+        if self._range is not None:
+            return
+        self._range = _range(self.name)
+        self._range.__enter__()
+        self._seq = next(_opened)
+        with _open_lock:
+            _open_backward[self._seq] = self
+        torch.autograd.Variable._execution_engine.queue_callback(self.close)
+
+    def close(self) -> None:
+        rng, self._range = self._range, None
+        if rng is None:
+            return
+        with _open_lock:
+            _open_backward.pop(self._seq, None)
+        rng.__exit__(None, None, None)
+
+
+_mark_functions: Any = None
+
+
+def _marks() -> Any:
+    """The identity autograd functions (open on the output's gradient,
+    close on the inputs'), made on first use: this module loads no
+    torch."""
+    global _mark_functions
+    if _mark_functions is None:
+        import torch
+
+        class OpenOnGrad(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, rng, x):
+                ctx.rng = rng
+                return x.view_as(x)
+
+            @staticmethod
+            def backward(ctx, g):
+                ctx.rng.open()
+                return None, g
+
+        class CloseOnGrad(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, rng, *xs):
+                ctx.rng = rng
+                return tuple(x.view_as(x) for x in xs)
+
+            @staticmethod
+            def backward(ctx, *gs):
+                ctx.rng.close()
+                return (None,) + gs
+
+        _mark_functions = (OpenOnGrad, CloseOnGrad)
+    return _mark_functions

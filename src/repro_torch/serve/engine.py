@@ -43,7 +43,7 @@ from ..api.chaos import sync_point
 from ..device import resolve_device
 from ..models import lm
 from ..models.config import ModelConfig
-from ..obs import counter, emit, histogram
+from ..obs import counter, emit, histogram, span
 from .kvcache import KVCacheManager
 
 __all__ = ["ServeEngine", "Request", "ServeError", "EmptyPromptError",
@@ -262,88 +262,93 @@ class ServeEngine:
     def step(self) -> bool:
         """One engine tick; returns False when there was nothing to do."""
         sync_point("serve.step", step=self.steps)
-        self._admit()
-        slots_live = [i for i, r in enumerate(self.active) if r is not None]
-        if not slots_live:
-            return False
-        self.steps += 1
-        self._c_steps.inc()
+        with span("serve.admit"):
+            self._admit()
+        with span("serve.feed"):
+            slots_live = [i for i, r in enumerate(self.active) if r is not None]
+            if not slots_live:
+                return False
+            self.steps += 1
+            self._c_steps.inc()
 
-        adv = np.zeros((self.slots,), np.int32)
-        for i in slots_live:
-            r = self.active[i]
-            remaining = len(r.prompt) - self._fed[i]
-            want = min(remaining, self.prefill_chunk) if remaining > 0 else 1
-            cap = self.kv.capacity(i)
-            if int(self.kv.pos[i]) + want > min(cap, self.max_len):
-                # strict reservation makes this unreachable through
-                # submit(); kept as the typed bounds gate
-                self._fail(r, CacheOverflowError(
-                    f"slot {i} clock {int(self.kv.pos[i])}+{want} past "
-                    f"capacity {cap}"), slot=i)
-                continue
-            adv[i] = want
-        slots_live = [i for i in slots_live if adv[i] > 0]
-        if not slots_live:
-            return False
+            adv = np.zeros((self.slots,), np.int32)
+            for i in slots_live:
+                r = self.active[i]
+                remaining = len(r.prompt) - self._fed[i]
+                want = min(remaining, self.prefill_chunk) if remaining > 0 else 1
+                cap = self.kv.capacity(i)
+                if int(self.kv.pos[i]) + want > min(cap, self.max_len):
+                    # strict reservation makes this unreachable through
+                    # submit(); kept as the typed bounds gate
+                    self._fail(r, CacheOverflowError(
+                        f"slot {i} clock {int(self.kv.pos[i])}+{want} past "
+                        f"capacity {cap}"), slot=i)
+                    continue
+                adv[i] = want
+            slots_live = [i for i in slots_live if adv[i] > 0]
+            if not slots_live:
+                return False
 
-        C = 1 if int(adv.max()) <= 1 else self.prefill_chunk
-        feed = np.zeros((self.slots, C), np.int32)
-        for i in slots_live:
-            r = self.active[i]
-            n = int(adv[i])
-            fed = self._fed[i]
-            if fed < len(r.prompt):
-                feed[i, :n] = r.prompt[fed:fed + n]
-            else:
-                feed[i, 0] = r.generated[-1]
+            C = 1 if int(adv.max()) <= 1 else self.prefill_chunk
+            feed = np.zeros((self.slots, C), np.int32)
+            for i in slots_live:
+                r = self.active[i]
+                n = int(adv[i])
+                fed = self._fed[i]
+                if fed < len(r.prompt):
+                    feed[i, :n] = r.prompt[fed:fed + n]
+                else:
+                    feed[i, 0] = r.generated[-1]
 
-        tokens = self._tensor(feed)
-        if self.cfg.frontend == "audio":
-            # every codebook stream gets the fed token: a view, no copy
-            tokens = tokens[..., None].expand(-1, -1, self.cfg.num_codebooks)
+            tokens = self._tensor(feed)
+            if self.cfg.frontend == "audio":
+                # every codebook stream gets the fed token: a view, no copy
+                tokens = tokens[..., None].expand(-1, -1, self.cfg.num_codebooks)
 
-        zb = self.kv.take_zero_blocks()
-        rs = self.kv.take_reset_slots()
-        logits, self.kv.cache = self._step(
-            self.params, tokens, self.kv.cache,
-            self._tensor(self.kv.table), self._tensor(self.kv.pos),
-            self._tensor(adv),
-            zero_blocks=None if zb is None else self._tensor(zb),
-            reset_slots=None if rs is None else self._tensor(rs))
-        if self.cfg.frontend == "audio":
-            logits = logits[:, :, 0]         # sample codebook 0
-        # only each slot's last real row is sampled: copy (B, V), not (B, C, V)
-        last = torch.from_numpy(np.maximum(adv - 1, 0).astype(np.int64))
-        rows = logits[torch.arange(self.slots, device=logits.device),
-                      last.to(logits.device)]
-        logits_np = rows.float().cpu().numpy()
+            zb = self.kv.take_zero_blocks()
+            rs = self.kv.take_reset_slots()
+            table, pos, adv_t = (self._tensor(a) for a in (self.kv.table, self.kv.pos, adv))
+            zero_blocks = None if zb is None else self._tensor(zb)
+            reset_slots = None if rs is None else self._tensor(rs)
+        with span("serve.model"):
+            logits, self.kv.cache = self._step(
+                self.params, tokens, self.kv.cache, table, pos, adv_t,
+                zero_blocks=zero_blocks, reset_slots=reset_slots)
+        with span("serve.readback"):
+            if self.cfg.frontend == "audio":
+                logits = logits[:, :, 0]         # sample codebook 0
+            # only each slot's last real row is sampled: copy (B, V), not (B, C, V)
+            last = torch.from_numpy(np.maximum(adv - 1, 0).astype(np.int64))
+            rows = logits[torch.arange(self.slots, device=logits.device),
+                          last.to(logits.device)]
+            logits_np = rows.float().cpu().numpy()
 
-        now = self.clock()
-        for i in slots_live:
-            r = self.active[i]
-            n = int(adv[i])
-            self.kv.advance(i, n)
-            if self._fed[i] < len(r.prompt):
-                self._fed[i] += n
+        with span("serve.sample"):
+            now = self.clock()
+            for i in slots_live:
+                r = self.active[i]
+                n = int(adv[i])
+                self.kv.advance(i, n)
                 if self._fed[i] < len(r.prompt):
-                    continue                 # more prompt chunks to go
-            nxt = self._sample(logits_np[i], r)
-            if r.t_first_token is None:
-                r.t_first_token = now
-                r.state = STATUS_DECODE
-                emit("Request", self._rname(r), "first_token")
-            r.generated.append(nxt)
-            if len(r.generated) >= r.max_new_tokens:
-                r.state = STATUS_DONE
-                r.t_done = now
-                self._c_completed.inc()
-                emit("Request", self._rname(r), "complete",
-                     tokens=len(r.generated))
-                self.completed.append(r)
-                self.kv.release(i)
-                self.active[i] = None
-                sync_point("serve.complete", slot=i, uid=r.uid)
+                    self._fed[i] += n
+                    if self._fed[i] < len(r.prompt):
+                        continue                 # more prompt chunks to go
+                nxt = self._sample(logits_np[i], r)
+                if r.t_first_token is None:
+                    r.t_first_token = now
+                    r.state = STATUS_DECODE
+                    emit("Request", self._rname(r), "first_token")
+                r.generated.append(nxt)
+                if len(r.generated) >= r.max_new_tokens:
+                    r.state = STATUS_DONE
+                    r.t_done = now
+                    self._c_completed.inc()
+                    emit("Request", self._rname(r), "complete",
+                         tokens=len(r.generated))
+                    self.completed.append(r)
+                    self.kv.release(i)
+                    self.active[i] = None
+                    sync_point("serve.complete", slot=i, uid=r.uid)
         return True
 
     def _sample(self, logits: np.ndarray, r: Request) -> int:

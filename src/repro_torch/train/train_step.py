@@ -30,6 +30,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from ..device import resolve_device
 from ..models import lm
 from ..models.config import ModelConfig
+from ..obs import span
 from ..parallel.sharding import (active_mesh, batch_placements, current_rules,
                                  distribute_batch, distribute_tree, from_local_shard,
                                  param_shardings, to_plain, whole_dims)
@@ -118,17 +119,18 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     sc = step_cfg or StepConfig()
 
     def grads_of(params: Any, batch: Batch) -> Tuple[list, Dict[str, torch.Tensor]]:
-        if active_mesh() is not None:
-            batch = distribute_batch(batch, current_rules())
-        live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-        loss, metrics = lm.train_loss(cfg, tree_unflatten(params, live), batch,
-                                      sc.attention_impl, sc.remat)
-        # a parameter the batch does not reach (the projector of a
-        # text-only vision batch) gets zeros, as jax.grad gives it
-        grads = torch.autograd.grad(loss, live, allow_unused=True,
-                                    materialize_grads=True)
-        return ([_placed_like(g, p) for g, p in zip(grads, live)],
-                {k: to_plain(v.detach()) for k, v in metrics.items()})
+        with span("train.grads"):
+            if active_mesh() is not None:
+                batch = distribute_batch(batch, current_rules())
+            live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+            loss, metrics = lm.train_loss(cfg, tree_unflatten(params, live), batch,
+                                          sc.attention_impl, sc.remat)
+            # a parameter the batch does not reach (the projector of a
+            # text-only vision batch) gets zeros, as jax.grad gives it
+            grads = torch.autograd.grad(loss, live, allow_unused=True,
+                                        materialize_grads=True)
+            return ([_placed_like(g, p) for g, p in zip(grads, live)],
+                    {k: to_plain(v.detach()) for k, v in metrics.items()})
 
     def accumulated(params: Any, batch: Batch) -> Tuple[list, Dict[str, torch.Tensor]]:
         mu = sc.microbatches
@@ -153,9 +155,11 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
         grads = tree_unflatten(params, grads)
         if grad_transform is not None:
             grads = grad_transform(grads)
-        grads, gnorm = clip_by_global_norm(grads, sc.clip_norm)
-        new_params, new_opt = optimizer.update(params, grads, state["opt_state"],
-                                               state["step"])
+        with span("train.clip"):
+            grads, gnorm = clip_by_global_norm(grads, sc.clip_norm)
+        with span("train.optimizer"):
+            new_params, new_opt = optimizer.update(params, grads, state["opt_state"],
+                                                   state["step"])
         metrics["grad_norm"] = to_plain(gnorm)
         return ({"params": new_params, "opt_state": new_opt,
                  "step": state["step"] + 1}, metrics)

@@ -34,6 +34,7 @@ from ..core.nri import Event, EventBus, Events
 from ..data.pipeline import SyntheticLMData
 from ..device import resolve_device
 from ..models.config import ModelConfig
+from ..obs import span
 from .optimizer import Optimizer
 from .train_step import StepConfig, TrainState, init_train_state, make_train_step
 
@@ -176,13 +177,15 @@ class Trainer:
             self.bus.publish(Events.STEP_BEGIN, step=step, bus=self.bus)
             if self._stop:
                 return {"stopped_at": step, "reason": "node_failure"}
-            batch = {k: torch.from_numpy(v).to(self.device)
-                     for k, v in self.data.batch(step).items()}
+            with span("train.batch"):
+                batch = {k: torch.from_numpy(v).to(self.device)
+                         for k, v in self.data.batch(step).items()}
             self.state, metrics = self._step_fn(self.state, batch)
             self.bus.publish(Events.STEP_END, step=step, metrics=metrics,
                              state=self.state, bus=self.bus)
-            self.history.append({"step": step,
-                                 "loss": float(metrics["loss"])})
+            with span("train.readback"):
+                loss = float(metrics["loss"])
+            self.history.append({"step": step, "loss": loss})
         if self.ckpt is not None:
             self.ckpt.wait()
         self.bus.publish(Events.JOB_COMPLETED, step=start + num_steps)

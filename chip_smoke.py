@@ -27,8 +27,8 @@ and holds the dry run's roofline against the card, with random weights
 from a seed, in phases (each logs its seconds):
 
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: nvcc for the three CUDA libraries (RMSNorm, flash attention,
-     SSD chunk), all at once;
+  2. build: nvcc for the four CUDA libraries (RMSNorm, flash attention,
+     paged attention, SSD chunk), all at once;
   3. RMSNorm kernel vs its plain version (f32, bf16 and f16 x; f32 and
      bf16 scales; contiguous and strided rows; every model width);
   4. flash-attention kernels vs their plain version (bf16 on tensor
@@ -39,11 +39,22 @@ from a seed, in phases (each logs its seconds):
      3xTF32 on tensor cores) vs their plain version: the JAX tests'
      shapes and property-test shapes, model shapes, misaligned views
      (each also bit-equal to the kernels' output on an aligned copy);
+  4c. paged decode-attention kernels (bf16 on tensor cores, f32 scalar)
+     vs their plain version in f32, real rows only (padded rows zeros):
+     danube-rag's ticks (64 slots of 4096 in shuffled 16-token blocks,
+     chunks of 64 and of 1, clocks over 0-4032), few slots (the split
+     over keys and its combine), hymba's, arctic's, internvl2's,
+     musicgen's and the smoke configs' heads;
   5. danube in f32: prefill with the flash kernel vs the dense path,
      ServeEngine chunked-prefill first-token logits vs prefill, and a
      request's greedy tokens alone vs beside staggered others;
-  6. danube serving in bf16 through the Router: 8 requests, 4 slots;
-     then a torch.profiler breakdown of its serving ticks;
+  6. danube serving in bf16 through the Router: 8 requests, 4 slots
+     (every serving phase checks one paged-attention launch per layer
+     and tick, and the dense path's count of phases 5-6 is checked
+     exactly); then one decode_chunk tick at danube-rag's shape under
+     torch.profiler: num_layers paged-attention kernels and no gather of
+     the tables (``aten::index``); then a torch.profiler breakdown of its
+     serving ticks;
   6b. plane cost: the same weights and load (8 requests of 64-512
      prompt tokens, 32 new, 4 slots, chunk 16) through the Router and
      ServeEngine under four arms, PLANE_COST_ROUNDS rounds rotating their
@@ -192,7 +203,7 @@ from a seed, in phases (each logs its seconds):
      (the mesh and mesh families paths: before each of their runs) and
      read just after and checked, and
      each kernel's time at its
-     paths' shapes (taken after phase 4b) beside its plain version, a
+     paths' shapes (taken after phase 4c) beside its plain version, a
      PyTorch library call computing the same function where there is
      one, its bound and its own device time, summed over every CUDA
      kernel its wrapper launches (a missing profiler record fails the
@@ -318,8 +329,8 @@ class DropCounter:
         self._layers, self._route = layers, layers._route
         self._drops = []
 
-        def route(cfg, p, xt):
-            r = self._route(cfg, p, xt)
+        def route(cfg, p, xt, *real):
+            r = self._route(cfg, p, xt, *real)
             self._drops.append((~r.keep).sum())
             self.cap = r.cap
             return r
@@ -478,6 +489,7 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels.build import load_library
     from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.paged_attention import paged_attention as pa
     from repro_torch.kernels.rmsnorm import rmsnorm as rn
     from repro_torch.kernels.ssd_scan import ssd_scan
 
@@ -488,7 +500,7 @@ def phase_build():
 
     t0 = time.perf_counter()
     libs = (("rmsnorm", rn.SOURCE), ("flash_attention", fa.SOURCE),
-            ("ssd_chunk", ssd_scan.SOURCE))
+            ("paged_attention", pa.SOURCE), ("ssd_chunk", ssd_scan.SOURCE))
     with ThreadPoolExecutor(len(libs)) as ex:  # one nvcc per source, together
         jobs = {name: ex.submit(build, name, src) for name, src in libs}
         secs = {name: job.result() for name, job in jobs.items()}
@@ -701,6 +713,160 @@ def phase_ssd(gen):
     log(f"[ssd] {n} cases vs plain ok; max err {worst}")
 
 
+# danube-rag's engine: 64 slots of max_len 4096 in blocks of 16, chunks of 64
+PAGED_SLOTS, PAGED_CHUNK, PAGED_BLOCK, PAGED_MAX_LEN = 64, 64, 16, 4096
+
+
+def paged_slots(rng, B, C, mix="spread"):
+    """Block tables, clocks and real tokens of B slots -> (table (B, nb),
+    pos, adv) as numpy int32: tables of PAGED_MAX_LEN // PAGED_BLOCK
+    shuffled blocks of a pool of B nb + 1, the unused entries on the zero
+    sentinel block 0. ``mix`` "spread": clocks evenly over 0-4032 in a
+    shuffled order, each slot a decode row, a whole or partial chunk or
+    nothing (slot 0 at least a decode row); "rag": danube-rag's tick, 34
+    slots prefilling whole chunks beside decode rows (a padded-row share
+    of ~0.46 at 64 slots), clocks uniform in 0-3000 (mean ~1500
+    resident); at C = 1 every slot decodes."""
+    import numpy as np
+    nb = PAGED_MAX_LEN // PAGED_BLOCK
+    if mix == "rag":
+        adv = [C] * 34 + [1] * (B - 34) if C > 1 else [1] * B
+        pos = rng.randint(0, min(3001, PAGED_MAX_LEN - C + 1), size=B)
+    else:
+        adv = [int(rng.choice([0, 1, C, rng.randint(1, C + 1)])) if C > 1
+               else int(rng.randint(0, 2)) for _ in range(B)]
+        adv[0] = max(adv[0], 1)                    # at least one real row
+        pos = rng.permutation(np.linspace(0, PAGED_MAX_LEN - 64, B).astype(int))
+    perm = rng.permutation(np.arange(1, B * nb + 1))
+    table = np.zeros((B, nb), np.int32)
+    for b in range(B):
+        used = -(-(int(pos[b]) + adv[b]) // PAGED_BLOCK)
+        table[b, :used] = perm[b * nb:b * nb + used]
+    return table, np.asarray(pos, np.int32), np.asarray(adv, np.int32)
+
+
+def paged_tick(gen, rng, cfg, B, C, dtype, mix="spread"):
+    """One tick's inputs of the paged attention for ``cfg``'s heads
+    (:func:`paged_slots`; random pool, q and the chunk's k, v of width C)
+    -> the arguments of ``paged_attention``."""
+    import torch
+    H, K, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    table, pos, adv = paged_slots(rng, B, C, mix)
+    NB = table.size + 1
+    pool_k, pool_v = (torch.randn(NB, PAGED_BLOCK, K, d, device=DEVICE,
+                                  generator=gen).to(dtype) for _ in range(2))
+    pool_k[0] = 0
+    pool_v[0] = 0
+    q = torch.randn(B, C, H, d, device=DEVICE, generator=gen).to(dtype)
+    k, v = (torch.randn(B, C, K, d, device=DEVICE, generator=gen).to(dtype) for _ in range(2))
+    return (q, k, v, pool_k, pool_v,
+            *(torch.from_numpy(a).to(DEVICE) for a in (table, pos, adv)))
+
+
+def paged_errs(out, ref, adv):
+    """The real rows' (j < adv) largest error and largest error over the
+    row's RMS in ``ref``; checks that every other row is zeros."""
+    import torch
+    real = torch.arange(out.shape[1], device=out.device)[None, :] < adv[:, None]
+    if (~real).any():
+        check(float(out[~real].float().abs().max()) == 0, "a padded row is not zeros")
+    err = (out.float() - ref.float()).abs().amax(-1)[real]
+    rms = ref.float().pow(2).mean(-1).sqrt()[real]
+    return float(err.max()), float((err / rms).max())
+
+
+def phase_paged(gen):
+    """The paged decode-attention kernels (bf16 on tensor cores, f32
+    scalar) against the plain version in f32 on the same inputs, real rows
+    only: danube-rag's ticks (64 slots, chunks of 64 and of 1, clocks over
+    0-4032), few slots (the split over keys and its combine), and the
+    heads of hymba (group 5, window 1024), arctic (group 7, d 128),
+    internvl2 (group 7, d 64), musicgen (group 1) and the smoke configs
+    (d 16). Tolerances as flash's: P is rounded to bf16 for P.V."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config, smoke_config
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    rng = np.random.RandomState(SEED)
+    danube = get_config(ARCH)
+    cases = [(danube, PAGED_SLOTS, PAGED_CHUNK), (danube, PAGED_SLOTS, 1),
+             (danube, 4, PAGED_CHUNK), (danube, 2, 1)]
+    cases += [(get_config(a), 8, 16) for a in (HYBRID_ARCH, "arctic-480b", VISION_ARCH,
+                                                AUDIO_ARCH)]
+    cases.append((smoke_config(ARCH), 8, 16))
+    worst, worst_row = {}, {}
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        row_tol = FLASH_ROW_REL_TOL[str(dtype)]
+        for cfg, B, C in cases:
+            args = paged_tick(gen, rng, cfg, B, C, dtype)
+            out = paged_attention(*args, window=cfg.sliding_window)
+            ref = paged_attention_ref(*(t.float() if t.is_floating_point() else t
+                                        for t in args), window=cfg.sliding_window)
+            err, row = paged_errs(out, ref, args[-1])
+            what = (f"paged {cfg.name} B={B} C={C} H={cfg.num_heads} K={cfg.num_kv_heads} "
+                    f"d={cfg.resolved_head_dim} window={cfg.sliding_window} {dtype}")
+            check(err <= tol, f"{what}: {err} > {tol}")
+            check(row <= row_tol, f"{what}: row error / row RMS {row} > {row_tol}")
+            worst[str(dtype)] = max(worst.get(str(dtype), 0.0), err)
+            worst_row[str(dtype)] = max(worst_row.get(str(dtype), 0.0), row)
+            del args, out, ref
+    # the plain version in bf16 (the path the kernel replaced) against the
+    # same f32 yardstick at danube-rag's prefill tick
+    args = paged_tick(gen, rng, danube, PAGED_SLOTS, PAGED_CHUNK, torch.bfloat16)
+    ref = paged_attention_ref(*(t.float() if t.is_floating_point() else t for t in args),
+                              window=danube.sliding_window)
+    plain = paged_attention_ref(*args, window=danube.sliding_window)
+    real = torch.arange(PAGED_CHUNK, device=DEVICE)[None, :] < args[-1][:, None]
+    plain_err = float((plain.float() - ref).abs().amax(-1)[real].max())
+    del args, ref, plain
+    torch.cuda.empty_cache()
+    log(f"[paged] {2 * len(cases)} cases vs plain ok; max abs err {worst}; worst row "
+        f"error / row RMS {worst_row}; the plain bf16 version's own max abs err at "
+        f"danube-rag's prefill tick {plain_err:.3g}")
+
+
+def phase_paged_tick(cfg, params):
+    """One decode_chunk tick of ``cfg`` (danube at full size) at
+    danube-rag's prefill mix on its engine's pool, under torch.profiler:
+    exactly num_layers paged-attention kernels, and no gather of the
+    tables (``aten::index``, what the plain version gathers with)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import lm
+    rng = np.random.RandomState(SEED)
+    B, C, nb = PAGED_SLOTS, PAGED_CHUNK, PAGED_MAX_LEN // PAGED_BLOCK
+    cache = lm.init_paged_cache(cfg, B, B * nb + 1, PAGED_BLOCK, DEVICE)
+    table, pos, adv = (torch.from_numpy(a).to(DEVICE) for a in paged_slots(rng, B, C, "rag"))
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, size=(B, C))).to(DEVICE)
+
+    def tick():
+        return lm.decode_chunk(cfg, params, toks, cache, table, pos, adv)
+
+    with torch.no_grad():
+        tick()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            tick()
+            torch.cuda.synchronize()
+    evs = kernel_events(prof)
+    paged = sum(c for k, c, _ in evs if "paged_mma_kernel" in k)
+    ops = {e.key: e.count for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CPU}
+    check(paged == cfg.num_layers,
+          f"a {cfg.name} tick ran {paged} paged-attention kernels, not {cfg.num_layers}")
+    check("aten::index" not in ops, f"a {cfg.name} tick gathers: aten::index x "
+                                    f"{ops.get('aten::index')}")
+    paged_ms = sum(us for k, _, us in evs if "paged" in k) / 1e3
+    busy_ms = sum(us for *_, us in evs) / 1e3
+    log(f"[paged tick] {cfg.name} {B} slots x chunk {C} (34 prefilling, 30 decoding): "
+        f"{paged} paged-attention kernels ({paged_ms:.3f} ms of {busy_ms:.3f} ms device "
+        f"time), no aten::index; index ops {sorted(k for k in ops if 'index' in k)}")
+    del cache
+    torch.cuda.empty_cache()
+
+
 def capture_logits(engine, sink, widths=None):
     """Wrap the engine's decode step so each tick's logits land in
     ``sink`` (and each tick's chunk width C in ``widths``)."""
@@ -725,6 +891,12 @@ def norms_per_tick(cfg, C):
     if cfg.family == "hybrid":
         return cfg.num_layers * (2 + C) + 1
     return 2 * cfg.num_layers + 1
+
+
+def paged_per_tick(cfg):
+    """Paged-attention launches of one decode_chunk tick: one per layer,
+    none for the attention-free ssm family."""
+    return 0 if cfg.family == "ssm" else cfg.num_layers
 
 
 def engine_first_token(cfg, params, prompt, lk, chunk):
@@ -795,13 +967,14 @@ def phase_model_f32(rng):
     e1 = rel_err(lk, ld)
     check(bool(torch.isfinite(lk).all()) and e1 <= 1e-3,
           f"prefill kernel vs dense: rel err {e1} > 1e-3")
-    e2, _ = engine_first_token(cfg, params, prompt, lk, 128)
-    n, _ = staggered_tokens_equal(cfg, params, rng)
+    e2, ticks = engine_first_token(cfg, params, prompt, lk, 128)
+    n, ticks2 = staggered_tokens_equal(cfg, params, rng)
     log(f"[model f32] {cfg.num_layers} layers d_model {cfg.d_model}: prefill kernel "
         f"vs dense rel err {e1:.3g}; engine first-token vs prefill rel err {e2:.3g}; "
         f"staggered greedy tokens equal ({n})")
     del params
     torch.cuda.empty_cache()
+    return ticks + ticks2
 
 
 def phase_ssm_f32(rng):
@@ -886,7 +1059,7 @@ def phase_hybrid_f32(rng):
     # per layer: norm1 for the cache's K/V, norm1, the gated norm and
     # norm2 in the layer body; then the final norm
     L = cfg.num_layers
-    want = {"flash_attention": L, "ssd_chunk": L, "rmsnorm": 4 * L + 1}
+    want = {"flash_attention": L, "paged_attention": 0, "ssd_chunk": L, "rmsnorm": 4 * L + 1}
     check(counts == want, f"hymba kernel prefill launches {counts} != {want}")
     log(f"[hybrid f32] {cfg.name} {L} layers (full depth) d_model {cfg.d_model}, "
         f"2048-token prompt, window {cfg.sliding_window}: prefill with the flash and "
@@ -903,7 +1076,8 @@ def kernel_prefill_launches(cfg, n: int = 1) -> dict:
     layer (once for the cache's K/V, once in the layer body), norm2,
     and the final norm."""
     L = cfg.num_layers
-    return {"flash_attention": n * L, "ssd_chunk": 0, "rmsnorm": n * (3 * L + 1)}
+    return {"flash_attention": n * L,
+            "paged_attention": 0, "ssd_chunk": 0, "rmsnorm": n * (3 * L + 1)}
 
 
 def add_launches(*counts) -> dict:
@@ -968,7 +1142,9 @@ def phase_moe_f32(rng):
         f"staggered greedy tokens equal ({n}); moe_apply at T=2048 (cap "
         f"{layers.moe_capacity(cfg, 2048)}) bit-equal over two runs")
     want = add_launches(kernel_prefill_launches(cfg, prefills),
-                        {"flash_attention": 0, "ssd_chunk": 0,
+                        {"flash_attention": 0,
+                         "paged_attention": (ticks + ticks2) * paged_per_tick(cfg),
+                         "ssd_chunk": 0,
                          "rmsnorm": 3 * cfg.num_layers + 1 + (ticks + ticks2)
                          * norms_per_tick(cfg, 1)})
     del params, lp
@@ -1019,7 +1195,8 @@ def phase_frontend_f32(rng, arch):
     # flash in the two kernel prefills; 3L+1 RMSNorm in each of the three
     # prefills (kernel_prefill_launches) and 2L+1 per engine tick
     L = cfg.num_layers
-    want = {"flash_attention": 2 * L, "ssd_chunk": 0,
+    want = {"flash_attention": 2 * L,
+            "paged_attention": (ticks + ticks2) * paged_per_tick(cfg), "ssd_chunk": 0,
             "rmsnorm": 3 * (3 * L + 1) + (ticks + ticks2) * norms_per_tick(cfg, 1)}
     del params
     torch.cuda.empty_cache()
@@ -1111,8 +1288,9 @@ def phase_train_f32():
           f"{vcfg.name} train loss kernel vs dense: rel err {e_loss} > 1e-3")
     e_vis = check_grads(gk, gd, f"{vcfg.name} train grads kernel vs dense")
     L = vcfg.num_layers
-    want = [{"flash_attention": 2 * L, "ssd_chunk": 0, "rmsnorm": 2 * 2 * L + 1},
-            {"flash_attention": 0, "ssd_chunk": 0, "rmsnorm": 2 * 2 * L + 1}]
+    want = [{"flash_attention": 2 * L,
+             "paged_attention": 0, "ssd_chunk": 0, "rmsnorm": 2 * 2 * L + 1},
+            {"flash_attention": 0, "paged_attention": 0, "ssd_chunk": 0, "rmsnorm": 2 * 2 * L + 1}]
     del state, gk, gd
     torch.cuda.empty_cache()
 
@@ -1130,7 +1308,7 @@ def phase_train_f32():
         check(e_l <= 1e-3, f"{hcfg.name} train loss card ({remat}) vs CPU: rel err {e_l}")
         e_hyb[remat] = check_grads(g, g_cpu, f"{hcfg.name} train grads card ({remat}) vs CPU")
         passes = 1 if remat == "none" else 2
-        want.append({"flash_attention": passes, "ssd_chunk": passes,
+        want.append({"flash_attention": passes, "paged_attention": 0, "ssd_chunk": passes,
                      "rmsnorm": 3 * passes + 1})
     log(f"[train f32] {vcfg.name} {L} layers, batch 2 x ({vcfg.num_patches} patches + "
         f"256 tokens), AdamW, remat full: loss {float(mk['loss']):.6g}, kernel vs dense "
@@ -1198,7 +1376,8 @@ def phase_train_bf16():
     mb = 2 * TRAIN_STEPS
     del state, first, params
     torch.cuda.empty_cache()
-    return {"flash_attention": mb * 2 * L, "ssd_chunk": 0, "rmsnorm": mb * (4 * L + 1)}
+    return {"flash_attention": mb * 2 * L,
+            "paged_attention": 0, "ssd_chunk": 0, "rmsnorm": mb * (4 * L + 1)}
 
 
 def phase_train_launcher():
@@ -1225,7 +1404,8 @@ def phase_train_launcher():
           and math.isfinite(out["result"]["final_loss"]), f"train launcher losses: {out}")
     log(f"[train launcher] {json.dumps({**out, 'layers': cfg.num_layers, 'params': cfg.param_count(), 'batch': 8, 'seq': 64, 'remat': 'dots', 'ms_per_step': 1e3 / out['steps_per_s'], 'seconds_with_init': seconds, 'max_memory_allocated_bytes': torch.cuda.max_memory_allocated()})}")
     torch.cuda.empty_cache()
-    return {"flash_attention": TRAIN_LAUNCH_STEPS * 2 * cfg.num_layers, "ssd_chunk": 0,
+    return {"flash_attention": TRAIN_LAUNCH_STEPS * 2 * cfg.num_layers,
+            "paged_attention": 0, "ssd_chunk": 0,
             "rmsnorm": TRAIN_LAUNCH_STEPS * (4 * cfg.num_layers + 1)}
 
 
@@ -1419,7 +1599,7 @@ def phase_checkpoint():
     saved.clear()
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     free_cuda()
-    return {"flash_attention": 2 * CKPT_FIT * 2 * CKPT_LAYERS, "ssd_chunk": 0,
+    return {"flash_attention": 2 * CKPT_FIT * 2 * CKPT_LAYERS, "paged_attention": 0, "ssd_chunk": 0,
             "rmsnorm": 2 * CKPT_FIT * (4 * CKPT_LAYERS + 1)}
 
 
@@ -1588,8 +1768,9 @@ def phase_knd_serve():
     log(f"[knd serve] {json.dumps(report)}")
     for d in (KND_SERVE_DIR, KND_OBS_DIR):
         shutil.rmtree(d, ignore_errors=True)
-    return {"flash_attention": 0, "ssd_chunk": 0,
-            "rmsnorm": (ticks_plain + ticks + ticks_again) * (2 * cfg.num_layers + 1)}
+    served = ticks_plain + ticks + ticks_again
+    return {"flash_attention": 0, "paged_attention": served * paged_per_tick(cfg),
+            "ssd_chunk": 0, "rmsnorm": served * (2 * cfg.num_layers + 1)}
 
 
 def phase_knd_train():
@@ -1656,7 +1837,7 @@ def phase_knd_train():
     log(f"[knd train] {json.dumps(report)}")
     for d in (KND_TRAIN_DIR, KND_OBS_DIR):
         shutil.rmtree(d, ignore_errors=True)
-    return {"flash_attention": 3 * KND_STEPS * 2 * L, "ssd_chunk": 0,
+    return {"flash_attention": 3 * KND_STEPS * 2 * L, "paged_attention": 0, "ssd_chunk": 0,
             "rmsnorm": 3 * KND_STEPS * (4 * L + 1)}
 
 
@@ -1767,7 +1948,7 @@ def phase_mesh_train(mesh):
 
     cfg = get_config(ARCH)
     L = cfg.num_layers
-    want = {"flash_attention": MESH_STEPS * 2 * L, "ssd_chunk": 0,
+    want = {"flash_attention": MESH_STEPS * 2 * L, "paged_attention": 0, "ssd_chunk": 0,
             "rmsnorm": MESH_STEPS * (4 * L + 1)}
 
     def run(rules, capture):
@@ -1990,7 +2171,7 @@ def phase_mesh_families(mesh):
         L = cfg.num_layers
         norms = 1 + (cfg.family in ("ssm", "hybrid")) + (cfg.family != "ssm")
         return {"flash_attention": 2 * L * (cfg.family != "ssm"),
-                "ssd_chunk": 2 * L * (cfg.family in ("ssm", "hybrid")),
+                "paged_attention": 0, "ssd_chunk": 2 * L * (cfg.family in ("ssm", "hybrid")),
                 "rmsnorm": 2 * norms * L + 1}
 
     def run(cfg, opt, rules):
@@ -2130,6 +2311,7 @@ def phase_serve_bf16(rng, arch, layers=None, requests=8):
     capture_logits(eng, seen, widths)
     lens = rng.randint(64, 513, size=requests)
     norms_before = launch_counts()["rmsnorm"]
+    paged_before = launch_counts()["paged_attention"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with torch.no_grad():
@@ -2142,12 +2324,16 @@ def phase_serve_bf16(rng, arch, layers=None, requests=8):
     for lg in seen:
         finite &= torch.isfinite(lg).all()
     norms = launch_counts()["rmsnorm"] - norms_before
+    paged = launch_counts()["paged_attention"] - paged_before
     check(len(done) == requests and all(r.done for r in done),
           "not every request completed")
     check(bool(finite), "non-finite logits while serving")
     want = sum(norms_per_tick(cfg, C) for C in widths)
     check(len(widths) == eng.steps and norms == want,
           f"rmsnorm launches {norms} != {want} over {eng.steps} ticks")
+    check(paged == eng.steps * paged_per_tick(cfg),
+          f"paged-attention launches {paged} != {paged_per_tick(cfg)} per tick over "
+          f"{eng.steps} ticks")
     gen = sum(len(r.generated) for r in done)
     snap = slo.arm_snapshot("baseline")
     stats = {"arch": arch, "layers": cfg.num_layers, "full_depth_layers": full_depth,
@@ -2157,7 +2343,7 @@ def phase_serve_bf16(rng, arch, layers=None, requests=8):
              "tokens_per_s": gen / wall, "ms_per_tick": 1e3 * wall / eng.steps,
              "p50_ttft_ms": snap["p50_ttft_ms"], "p95_ttft_ms": snap["p95_ttft_ms"],
              "p50_tpot_ms": snap["p50_tpot_ms"], "p95_tpot_ms": snap["p95_tpot_ms"],
-             "rmsnorm_launches_serving": norms}
+             "rmsnorm_launches_serving": norms, "paged_launches_serving": paged}
     log(f"[serve bf16] {json.dumps(stats)}")
     return cfg, params, prefill, stats
 
@@ -2351,8 +2537,8 @@ def phase_plane_cost(cfg, params):
             "trace_events": [r.get("trace_events") for r in runs[a]],
             "runs": runs[a]}
     log(f"[plane cost] {json.dumps(report)}")
-    return {"flash_attention": 0, "ssd_chunk": 0,
-            "rmsnorm": ticks * (2 * cfg.num_layers + 1)}
+    return {"flash_attention": 0, "paged_attention": ticks * paged_per_tick(cfg),
+            "ssd_chunk": 0, "rmsnorm": ticks * (2 * cfg.num_layers + 1)}
 
 
 def rmsnorm_inputs(gen, shape):
@@ -2381,6 +2567,70 @@ def phase_rmsnorm_fresh(gen):
     out = rmsnorm_vs_library(x, s, cfg.norm_eps)
     log(f"[rmsnorm fresh] (4, {cfg.ssm_d_inner}) bf16, before any other phase: "
         f"{json.dumps(out)}")
+
+
+def paged_kernel_times(gen) -> dict:
+    """The paged-attention entry of the kernels line: the kernel at
+    danube-rag's ticks, 64 slots of 4096, 34 prefilling 64-token chunks
+    beside 30 decode rows, and 64 decode rows (C = 1), beside its plain
+    version and its bound. Least work: the resident K/V that some real
+    row sees, read once, the chunk's real K/V and q, the real rows'
+    output written; QK^T and PV over each real row's visible keys."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    cfg = get_config(ARCH)
+
+    def paged_at(C):
+        rng = np.random.RandomState(SEED)
+        args = paged_tick(gen, rng, cfg, PAGED_SLOTS, C, torch.bfloat16, mix="rag")
+        W, H, K, d = (cfg.sliding_window, cfg.num_heads, cfg.num_kv_heads,
+                      cfg.resolved_head_dim)
+        pos, adv = (a.tolist() for a in args[6:])
+        keys = rows = pairs = 0
+        for p, n in zip(pos, adv):
+            if n == 0:
+                continue
+            keys += p - max(0, p - W + 1)               # resident keys row 0 sees
+            rows += n
+            for j in range(n):                          # resident + chunk keys of row j
+                pairs += p - max(0, p + j - W + 1) + min(j + 1, W)
+        flops = 4 * d * H * pairs
+        nbytes = 2 * ((keys + rows) * 2 * K * d + 2 * rows * H * d)
+        t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+        ref = paged_attention_ref(*(t.float() if t.is_floating_point() else t for t in args),
+                                  window=W)
+        err, row = paged_errs(paged_attention(*args, window=W), ref, args[-1])
+        del ref
+        out = {
+            "max_abs_err": err, "max_row_err_over_rms": row,
+            "ms": time_ms(lambda: paged_attention(*args, window=W)),
+            "plain_ms": time_ms(lambda: paged_attention_ref(*args, window=W),
+                                reps=5, inner=2),
+            "device_ms": kernel_device_ms(lambda: paged_attention(*args, window=W),
+                                          "paged_mma_kernel", n=10),
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "bound_ops_ms": 1e3 * t_ops, "bound_bytes_ms": 1e3 * t_bytes,
+            "library_ms": None, "kernel": "paged_mma_kernel",
+            "shape": [PAGED_SLOTS, C, H, K, d], "block_size": PAGED_BLOCK,
+            "max_len": PAGED_MAX_LEN, "window": W, "dtype": "bfloat16",
+            "real_rows": rows, "mean_resident": sum(pos) / len(pos), "flops": flops,
+            "bytes": nbytes}
+        del args
+        torch.cuda.empty_cache()
+        return out
+
+    return {
+        "name": "paged_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
+        "replaces": None, "library_call": "none: no PyTorch call computes paged attention",
+        "use": f"{ARCH} danube-rag prefill tick, 34 x 64-token chunks beside 30 decode rows",
+        **paged_at(PAGED_CHUNK),
+        "by_shape": [{"use": f"{ARCH} danube-rag decode tick, 64 decode rows",
+                      **paged_at(1)}]}
 
 
 def phase_kernel_times(gen):
@@ -2514,6 +2764,8 @@ def phase_kernel_times(gen):
             {"use": f"{AUDIO_ARCH} bf16 prefill, group 1 (as many kv heads as q heads)",
              **flash_at(1, 2048, audio.num_heads, audio.num_kv_heads,
                         audio.resolved_head_dim, 0, torch.bfloat16)}]})
+
+    out.append(paged_kernel_times(gen))
 
     # the SSD chunk at mamba2's 2048-token prefill: x bf16, the rest f32,
     # the decays of mamba2's init. Least work: C.B^T once per chunk and,
@@ -2817,7 +3069,7 @@ def phase_elastic_card():
     log(f"[elastic card] {json.dumps(report)}")
     steps = ELASTIC_FAIL_AT + 2 + 6
     L = ELASTIC_LAYERS
-    return {"flash_attention": steps * 2 * L, "ssd_chunk": 0,
+    return {"flash_attention": steps * 2 * L, "paged_attention": 0, "ssd_chunk": 0,
             "rmsnorm": steps * (4 * L + 1)}
 
 
@@ -2868,7 +3120,7 @@ def phase_legacy_f32(rng):
     del params, eng, seen
     free_cuda()
     L = cfg.num_layers
-    return {"flash_attention": 0, "ssd_chunk": 0,
+    return {"flash_attention": 0, "paged_attention": 0, "ssd_chunk": 0,
             "rmsnorm": 3 * L + 1 + ticks * (2 * L + 1)}
 
 
@@ -2954,7 +3206,7 @@ def phase_legacy_bf16(rng):
     run = {"cfg": cfg, "params": params, "a": a, "b": b, "lens": lens, "prompts": prompts,
            "b_recycled": b_recycled, "b_fresh_legacy": b_fresh_legacy,
            "recycled_b_tokens": rb.generated, "legacy": base}
-    return {"flash_attention": 0, "ssd_chunk": 0,
+    return {"flash_attention": 0, "paged_attention": 0, "ssd_chunk": 0,
             "rmsnorm": ticks * norms_per_tick(cfg, 1)}, run
 
 
@@ -3029,8 +3281,8 @@ def phase_legacy_vs_serve(run):
     run.clear()
     del params
     free_cuda()
-    return {"flash_attention": 0, "ssd_chunk": 0,
-            "rmsnorm": ticks * norms_per_tick(cfg, 1)}
+    return {"flash_attention": 0, "paged_attention": ticks * paged_per_tick(cfg),
+            "ssd_chunk": 0, "rmsnorm": ticks * norms_per_tick(cfg, 1)}
 
 
 DRYRUN_LAYERS = 2                  # [dryrun card]: danube at full width, 2 of 24 layers
@@ -3106,7 +3358,7 @@ def phase_dryrun_card():
     check(out["device_ms_per_step"] >= bound_ms,
           f"[dryrun card] the step's device time {out['device_ms_per_step']:.3f} ms below "
           f"the roofline's bound {bound_ms:.3f} ms")
-    return {"flash_attention": 0, "ssd_chunk": 0,
+    return {"flash_attention": 0, "paged_attention": 0, "ssd_chunk": 0,
             "rmsnorm": 6 * (4 * cfg.num_layers + 1)}
 
 
@@ -3142,21 +3394,27 @@ def main() -> int:
     timed("rmsnorm", phase_rmsnorm, gen)
     timed("flash", phase_flash, gen)
     timed("ssd", phase_ssd, gen)
+    timed("paged", phase_paged, gen)
     times = timed("kernel times", phase_kernel_times, gen)
 
     rng = np.random.RandomState(SEED)
     paths = {}
     reset_launch_counts()                      # the dense path: phases 5-6
-    timed("model f32", phase_model_f32, rng)
-    cfg, params, _, _ = timed("serve bf16 " + ARCH, phase_serve_bf16, rng, ARCH)
+    f32_ticks = timed("model f32", phase_model_f32, rng)
+    cfg, params, _, stats = timed("serve bf16 " + ARCH, phase_serve_bf16, rng, ARCH)
     paths["dense"] = launch_counts()
     log(f"[dense path] kernel launches in phases 5-6: {paths['dense']}")
-    # one flash launch per layer in each of the f32 and bf16 prefills;
-    # the RMSNorm launches of the serving ticks are checked in phase 6
+    # one flash launch per layer in each of the f32 and bf16 prefills, one
+    # paged launch per layer and serving tick; the RMSNorm launches of the
+    # serving ticks are checked in phase 6
     want_flash = 2 * cfg.num_layers
+    want_paged = (f32_ticks + stats["ticks"]) * paged_per_tick(cfg)
     check(paths["dense"]["flash_attention"] == want_flash
+          and paths["dense"]["paged_attention"] == want_paged
           and paths["dense"]["ssd_chunk"] == 0 and paths["dense"]["rmsnorm"] > 0,
-          f"dense path launches {paths['dense']}: want {want_flash} flash, no SSD")
+          f"dense path launches {paths['dense']}: want {want_flash} flash, "
+          f"{want_paged} paged, no SSD")
+    timed("paged tick " + ARCH, phase_paged_tick, cfg, params)
     timed("profile " + ARCH, phase_profile, cfg, params, rng)
     # the plane cost path: danube's weights again, served under the four
     # arms; RMSNorm's launches, 2L+1 per engine tick, counted exactly
@@ -3177,7 +3435,9 @@ def main() -> int:
         cfg, params, _, stats = timed(f"serve bf16 {arch}", phase_serve_bf16, rng, arch,
                                       MOE_DEPTH[arch])
         want.append(add_launches(kernel_prefill_launches(cfg),
-                                 {"flash_attention": 0, "ssd_chunk": 0,
+                                 {"flash_attention": 0,
+                                  "paged_attention": stats["ticks"] * paged_per_tick(cfg),
+                                  "ssd_chunk": 0,
                                   "rmsnorm": stats["ticks"] * norms_per_tick(cfg, 1)}))
         if arch != "arctic-480b":
             del params
@@ -3204,7 +3464,8 @@ def main() -> int:
     # bf16 with the kernel. The serving ticks' RMSNorm launches are checked
     # in phase 10b
     L = hcfg.num_layers
-    want_h = {"flash_attention": 2 * L, "ssd_chunk": 3 * L,
+    want_h = {"flash_attention": 2 * L,
+              "paged_attention": stats["ticks"] * paged_per_tick(hcfg), "ssd_chunk": 3 * L,
               "rmsnorm": 3 * (4 * L + 1) + stats["rmsnorm_launches_serving"]}
     check(paths["hybrid"] == want_h, f"hybrid path launches {paths['hybrid']} != {want_h}")
     del params
@@ -3221,8 +3482,9 @@ def main() -> int:
                                        None, FRONTEND_REQUESTS)
         paths[path] = launch_counts()
         want = add_launches(want_f, kernel_prefill_launches(fcfg),
-                            {"flash_attention": 0, "ssd_chunk": 0,
-                             "rmsnorm": stats["rmsnorm_launches_serving"]})
+                            {"flash_attention": 0,
+                             "paged_attention": stats["ticks"] * paged_per_tick(fcfg),
+                             "ssd_chunk": 0, "rmsnorm": stats["rmsnorm_launches_serving"]})
         log(f"[{path} path] kernel launches: {paths[path]}")
         check(paths[path] == want, f"{path} path launches {paths[path]} != {want}")
         timed(f"profile {arch}", phase_profile, fcfg, params, rng)
@@ -3260,6 +3522,7 @@ def main() -> int:
     want_ssd = ((4 + len(prefill["incomplete_profile_sessions"])) * ssm_cfg.num_layers
                 + 1)
     check(paths["ssm"]["flash_attention"] == 0 and paths["ssm"]["rmsnorm"] > 0
+          and paths["ssm"]["paged_attention"] == 0
           and paths["ssm"]["ssd_chunk"] == want_ssd,
           f"ssm path launches {paths['ssm']}: want no flash, {want_ssd} SSD")
     # last: after the profile of a mamba2 tick (~240 k device records) the

@@ -8,13 +8,14 @@ them to 0.
 from typing import Dict
 
 from .flash_attention import ops as _flash_ops
+from .paged_attention import ops as _paged_ops
 from .rmsnorm import ops as _rmsnorm_ops
 from .ssd_scan import ops as _ssd_ops
 
 __all__ = ["launch_counts", "reset_launch_counts"]
 
-_OPS = {"flash_attention": _flash_ops, "rmsnorm": _rmsnorm_ops,
-        "ssd_chunk": _ssd_ops}
+_OPS = {"flash_attention": _flash_ops, "paged_attention": _paged_ops,
+        "rmsnorm": _rmsnorm_ops, "ssd_chunk": _ssd_ops}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..kernels.flash_attention.ops import flash_attention
+from ..kernels.paged_attention.ops import paged_attention
 from ..kernels.rmsnorm.ops import rmsnorm as rmsnorm_op
 from ..kernels.ssd_scan.ops import shard_layout, ssd_chunk
 from ..obs import span
@@ -372,20 +373,19 @@ def attention_decode_paged(cfg: ModelConfig, p: Params, x: torch.Tensor,
     block; pos: (B,) tokens already resident per slot; adv: (B,) real
     tokens in this chunk per slot (0 = slot inactive).
 
-    Queries attend to the pre-chunk resident keys (gathered through the
+    Queries attend to the pre-chunk resident keys (read through the
     block table, masked to ``kpos < pos`` and the window) plus the
-    in-chunk keys under a causal mask, in one softmax; the chunk's K/V
-    are then written into the pool at positions [pos, pos+adv). The pool
-    is written in place, where the JAX version's is donated.
+    in-chunk keys under a causal mask, in one softmax
+    (:func:`..kernels.paged_attention.ops.paged_attention`: the kernel on
+    CUDA, the plain version on the CPU); the chunk's K/V are then written
+    into the pool at positions [pos, pos+adv). The pool is written in
+    place, where the JAX version's is donated.
     """
     B, C, _ = x.shape
     cdt = cfg.compute_torch_dtype()
-    NB, bs = kv["k"].shape[0], kv["k"].shape[1]
+    bs = kv["k"].shape[1]
     nb = block_table.shape[1]
-    S = nb * bs
-    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    G = H // K
-    scale = 1.0 / math.sqrt(hd)
+    hd = cfg.resolved_head_dim
     dev = x.device
 
     jj = torch.arange(C, dtype=pos.dtype, device=dev)
@@ -395,29 +395,8 @@ def attention_decode_paged(cfg: ModelConfig, p: Params, x: torch.Tensor,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
-    # resident keys, gathered logical-contiguous through the block table
-    ck = kv["k"][block_table.long()].reshape(B, S, K, hd).to(cdt)
-    cv = kv["v"][block_table.long()].reshape(B, S, K, hd).to(cdt)
-    kpos = torch.arange(S, dtype=pos.dtype, device=dev)
-    mask_res = kpos[None, None, :] < pos[:, None, None]               # (B,1,S)
-    mask_res = mask_res.expand(B, C, S)
-    mask_chunk = (jj[None, :] <= jj[:, None])[None]                   # causal (1,C,C)
-    mask_chunk = mask_chunk & (jj[None, None, :] < adv[:, None, None])
-    if cfg.sliding_window > 0:
-        w_ = cfg.sliding_window
-        mask_res = mask_res & (kpos[None, None, :] > qpos[:, :, None] - w_)
-        mask_chunk = mask_chunk & (qpos[:, None, :] > qpos[:, :, None] - w_)
-
-    qg = q.reshape(B, C, K, G, hd)
-    s_res = torch.einsum("bqkgh,bskh->bkgqs", qg, ck).float() * scale
-    s_chk = torch.einsum("bqkgh,bskh->bkgqs", qg, k).float() * scale
-    s_res = torch.where(mask_res[:, None, None], s_res, _neg_inf(s_res))
-    s_chk = torch.where(mask_chunk[:, None, None], s_chk, _neg_inf(s_chk))
-    scores = torch.cat([s_res, s_chk], dim=-1)                        # (B,K,G,C,S+C)
-    w = torch.softmax(scores, dim=-1).to(cdt)
-    out = (torch.einsum("bkgqs,bskh->bqkgh", w[..., :S], cv)
-           + torch.einsum("bkgqs,bskh->bqkgh", w[..., S:], v))
-    out = out.reshape(B, C, H, hd)
+    out = paged_attention(q, k, v, kv["k"], kv["v"], block_table, pos, adv,
+                          window=cfg.sliding_window)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(cdt))
 
     # Write the chunk's K/V into the pool. JAX drops padded rows
@@ -562,7 +541,8 @@ class _Routing(NamedTuple):
     cap: int
 
 
-def _route(cfg: ModelConfig, p: Params, xt: torch.Tensor) -> _Routing:
+def _route(cfg: ModelConfig, p: Params, xt: torch.Tensor,
+           real: Optional[torch.Tensor] = None) -> _Routing:
     """The router of :func:`moe_apply` for rows ``xt`` (T,D).
 
     Top-k is a stable descending sort cut to k: on equal probabilities
@@ -570,7 +550,10 @@ def _route(cfg: ModelConfig, p: Params, xt: torch.Tensor) -> _Routing:
     (``torch.topk`` orders such ties the other way, which would swap a
     token's choices in the capacity order). A choice's slot is the
     number of earlier choices of its expert over the flattened (token,
-    choice) order; a choice at ``slot >= cap`` is dropped."""
+    choice) order; a choice at ``slot >= cap`` is dropped. With ``real``
+    (T,) bool, the real rows' choices are counted first and a padded
+    row's slot comes after every real choice of its expert, so padding
+    never takes a real row's place (JAX counts padding in row order)."""
     T = xt.shape[0]
     E, k = cfg.num_experts, cfg.top_k
     logits = xt.float() @ p["router"].float()
@@ -581,7 +564,13 @@ def _route(cfg: ModelConfig, p: Params, xt: torch.Tensor) -> _Routing:
     cap = moe_capacity(cfg, T)
     flat = ids.reshape(-1)
     onehot = (flat[:, None] == torch.arange(E, device=xt.device)).long()
-    slots = torch.cumsum(onehot, dim=0) - onehot               # exclusive
+    if real is None:
+        slots = torch.cumsum(onehot, dim=0) - onehot           # exclusive
+    else:
+        first = onehot * real.reshape(-1).repeat_interleave(k)[:, None]
+        pad = onehot - first
+        slots = torch.where(first.bool(), torch.cumsum(first, dim=0) - first,
+                            first.sum(0) + torch.cumsum(pad, dim=0) - pad)
     slot = torch.gather(slots, 1, flat[:, None])[:, 0]
     return _Routing(logits, probs, ids, weights, onehot.sum(0), slot, slot < cap, cap)
 
@@ -602,9 +591,12 @@ def _expert_shard(mesh: Any, E: int, cap: int, D: int) -> Tuple[int, int, list]:
     return first, n, pl
 
 
-def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor
+def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
+              real: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x: (B,S,D) -> (y, aux losses). Capacity-dropped top-k dispatch.
+    """x: (B,S,D) -> (y, aux losses). Capacity-dropped top-k dispatch;
+    ``real`` (B,S) bool marks the rows that take capacity first
+    (:func:`_route`), None for all rows in order.
 
     No atomics and no host syncs: every kept choice has its own (expert,
     slot), so a plain ``index_put_`` into zeros gives the bits of JAX's
@@ -637,7 +629,7 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor
         xt = local_shard(x, mesh, rep).reshape(T, D)
         xd = local_shard(x, mesh, rep, summed).reshape(T, D)
         router = local_shard(router, mesh, rep)
-    r = _route(cfg, {"router": router}, xt)
+    r = _route(cfg, {"router": router}, xt, real)
     cap = r.cap
 
     # aux losses (Switch-style load balance + router z-loss), f32

@@ -146,13 +146,15 @@ def param_specs(cfg: ModelConfig) -> Params:
 
 
 def _residual(cfg: ModelConfig, lp: Params, x: torch.Tensor,
-              att: Optional[torch.Tensor], y_ssd: Optional[torch.Tensor]
+              att: Optional[torch.Tensor], y_ssd: Optional[torch.Tensor],
+              real: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The rest of a layer once its mixers have run: ``x + ssd`` (ssm),
     ``x + att`` (dense, moe) or ``x + (att + ssd)/2`` (hybrid), then the
     MLP or MoE block where the family has one. ``att`` is None for the
-    ssm family, ``y_ssd`` None for dense and moe. Returns the new x and
-    the MoE's aux losses ({} for the other families)."""
+    ssm family, ``y_ssd`` None for dense and moe; ``real`` marks the rows
+    that take the MoE's capacity first. Returns the new x and the MoE's
+    aux losses ({} for the other families)."""
     if cfg.family == "ssm":
         return x + y_ssd, {}
     if cfg.hybrid:
@@ -162,7 +164,7 @@ def _residual(cfg: ModelConfig, lp: Params, x: torch.Tensor,
     with span("model.mlp") as s:
         h2 = s.inputs(h2)
         if cfg.num_experts > 0:
-            y, aux = moe_apply(cfg, lp["moe"], h2)
+            y, aux = moe_apply(cfg, lp["moe"], h2, real)
         else:
             y, aux = mlp_apply(cfg, lp["mlp"], h2), {}
         y = s.output(y)
@@ -540,6 +542,9 @@ def decode_chunk(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
     with span("model.embed"):
         x, _ = embed_tokens(cfg, params, {"tokens": tokens})
+    # the chunk's real rows: they take the MoE's capacity before padding
+    real = (torch.arange(tokens.shape[1], device=adv.device)[None, :] < adv[:, None]
+            if cfg.num_experts > 0 else None)
     for li in range(cfg.num_layers):
         lp = _layer(params["layers"], li)
         hn = rmsnorm(lp["norm1"], x, cfg.norm_eps)
@@ -552,7 +557,7 @@ def decode_chunk(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             with span("model.attention"):
                 att, _ = attention_decode_paged(cfg, lp["attn"], hn, _layer(kv, li),
                                                 block_table, pos, adv)
-        x, _ = _residual(cfg, lp, x, att, y_ssd)
+        x, _ = _residual(cfg, lp, x, att, y_ssd, real)
     with span("model.head"):
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return lm_head(cfg, params, x), cache

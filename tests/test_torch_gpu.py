@@ -21,6 +21,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.kernels.ssd_scan.ops import ssd_chunk
@@ -212,6 +214,132 @@ def ssd_err(out, ref, relative):
         e = float((o - r).abs().max())
         errs.append(e / max(float(r.abs().max()), 1e-30) if relative else e)
     return max(errs)
+
+
+def paged_tick(cuda, seed, B, C, H, K, d, bs, nb, dtype):
+    """One tick's paged-attention inputs: per slot a decode row, a whole or
+    partial prefill chunk or nothing, at clocks spread over the table;
+    shuffled blocks, the unused entries on the zero sentinel block 0."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    slots = []
+    for _ in range(B):
+        adv = int(rng.choice([0, 1, C, rng.randint(1, C + 1)])) if C > 1 else int(
+            rng.randint(0, 2))
+        slots.append((int(rng.randint(0, nb * bs - adv + 1)), adv))
+    NB = B * nb + 1
+    perm = rng.permutation(np.arange(1, NB))
+    table = np.zeros((B, nb), np.int32)
+    for b, (p, a) in enumerate(slots):
+        used = -(-(p + a) // bs)
+        table[b, :used] = perm[b * nb:b * nb + used]
+    pool_k, pool_v = (torch.randn(NB, bs, K, d, device=cuda, generator=g).to(dtype)
+                      for _ in range(2))
+    pool_k[0] = 0
+    pool_v[0] = 0
+    q = torch.randn(B, C, H, d, device=cuda, generator=g).to(dtype)
+    k, v = (torch.randn(B, C, K, d, device=cuda, generator=g).to(dtype) for _ in range(2))
+    pos, adv = (torch.tensor([s[i] for s in slots], dtype=torch.int32, device=cuda)
+                for i in (0, 1))
+    return q, k, v, pool_k, pool_v, torch.from_numpy(table).to(cuda), pos, adv
+
+
+def paged_checked(args, window):
+    """One call: one launch, rows at or past adv zeros, and the real rows
+    against the plain version in f32 on the same inputs, per row as
+    flash_checked."""
+    before = launch_counts()["paged_attention"]
+    out = paged_attention(*args, window=window)
+    torch.cuda.synchronize()
+    assert launch_counts()["paged_attention"] == before + 1
+    q, k, v, pk, pv, table, pos, adv = args
+    assert out.dtype == q.dtype and out.shape == q.shape
+    ref = paged_attention_ref(q.float(), k.float(), v.float(), pk.float(), pv.float(),
+                              table, pos, adv, window=window)
+    real = torch.arange(q.shape[1], device=q.device)[None, :] < adv[:, None]
+    if (~real).any():
+        assert float(out[~real].float().abs().max()) == 0
+    err = (out.float() - ref).abs().amax(-1)[real]
+    row = err / ref.pow(2).mean(-1).sqrt()[real]
+    assert float(row.max()) <= (1e-4 if q.dtype == torch.float32 else 5e-2)
+    return float(err.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,C,H,K,d,window", [
+    (64, 64, 32, 8, 80, 4096),   # danube-rag's prefill tick (no key split)
+    (64, 1, 32, 8, 80, 4096),    # and its decode tick
+    (4, 64, 32, 8, 80, 4096),    # few slots: split over keys and combined
+    (6, 16, 25, 5, 64, 1024),    # hymba: group 5, the window binds
+    (6, 16, 56, 8, 128, 0),      # arctic: group 7, d 128
+    (6, 16, 14, 2, 64, 0),       # internvl2: group 7, d 64
+    (6, 16, 24, 24, 64, 0),      # musicgen: group 1
+    (3, 16, 4, 2, 16, 0),        # smoke configs: d 16
+])
+def test_paged_kernel_matches_plain_on_gpu(cuda, dtype, B, C, H, K, d, window):
+    nb = 256 if d == 80 else 64
+    args = paged_tick(cuda, B + C + d, B, C, H, K, d, 16, nb, dtype)
+    assert paged_checked(args, window) < tol(dtype)
+
+
+@pytest.mark.gpu
+def test_paged_kernel_rejects_a_pool_it_cannot_read_in_place(cuda):
+    args = list(paged_tick(cuda, 0, 2, 4, 8, 2, 64, 16, 8, torch.bfloat16))
+    wide = torch.zeros(*args[3].shape[:3], 68, device=cuda, dtype=torch.bfloat16)
+    args[3] = args[4] = wide[..., 2:66]
+    with pytest.raises(ValueError, match="cp_async_ready"):
+        paged_attention(*args)
+
+
+@pytest.mark.gpu
+def test_arctic_tick_with_binding_capacity_matches_plain_on_real_rows(cuda, monkeypatch):
+    """An arctic decode_chunk tick (the smoke config in f32, capacity
+    factor 0.25: 128 slots for 512 choices over 4 experts, so choices are
+    dropped) through the kernel against the same tick through the plain
+    version, both on the card: the kernel writes zeros in the padded
+    rows where the plain version attends them, and the real rows' logits
+    agree because padding takes the MoE's capacity last."""
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.models import layers, lm
+    cfg = smoke_config("arctic-480b").replace(capacity_factor=0.25, param_dtype="float32",
+                                              compute_dtype="float32")
+    params = lm.init_params(cfg, 0, cuda)
+    B, C, bs, nb = 4, 64, 16, 8
+    pos = torch.tensor([40, 0, 70, 3], dtype=torch.int32, device=cuda)
+    adv = torch.tensor([1, 64, 0, 23], dtype=torch.int32, device=cuda)
+    table = torch.arange(1, 1 + B * nb, dtype=torch.int32, device=cuda).reshape(B, nb)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    real = torch.arange(C, device=cuda)[None, :] < adv[:, None]
+    toks = torch.randint(1, cfg.vocab_size, (B, C), generator=g, device=cuda, dtype=torch.int32)
+    toks = torch.where(real, toks, 0)                     # the engine's padding
+    pool = lm.init_paged_cache(cfg, B, 1 + B * nb, bs, cuda)["kv"]
+    for a in pool.values():
+        a[:, 1:] = torch.randn(a[:, 1:].shape, generator=g, device=cuda)
+    drops = []
+    route = layers._route
+
+    def counting(*a):
+        r = route(*a)
+        drops.append(int((~r.keep).sum()))
+        return r
+
+    monkeypatch.setattr(layers, "_route", counting)
+    logits, launched = {}, {}
+    for name, fn in (("kernel", paged_attention), ("plain", paged_attention_ref)):
+        monkeypatch.setattr(layers, "paged_attention", fn)
+        before = launch_counts()["paged_attention"]
+        with torch.no_grad():
+            lg, _ = lm.decode_chunk(cfg, params, toks,
+                                    {"kv": {n: a.clone() for n, a in pool.items()}},
+                                    table, pos, adv)
+        launched[name] = launch_counts()["paged_attention"] - before
+        logits[name] = lg[real].float()
+    assert launched == {"kernel": cfg.num_layers, "plain": 0}
+    assert len(drops) == 2 * cfg.num_layers and min(drops) > 0
+    err = float((logits["kernel"] - logits["plain"]).abs().max())
+    assert err <= 1e-4 * float(logits["plain"].abs().max())
 
 
 @pytest.mark.gpu
@@ -573,8 +701,8 @@ def test_moe_apply_under_a_mesh_is_bit_equal_on_the_card(nccl_mesh):
     drops = []
     route = layers._route
 
-    def counting(cfg_, p_, xt):
-        r = route(cfg_, p_, xt)
+    def counting(cfg_, p_, xt, *real):
+        r = route(cfg_, p_, xt, *real)
         drops.append(int((~r.keep).sum()))
         return r
 

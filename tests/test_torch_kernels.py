@@ -229,7 +229,8 @@ def test_cpu_path_does_not_count_launches():
     c = torch.randn(1, 1, 8, 4)
     ssd_chunk(c, c, torch.randn(1, 1, 8, 2, 8), torch.ones(1, 1, 8, 2),
               -torch.ones(1, 1, 8, 2))
-    assert launch_counts() == {"flash_attention": 0, "rmsnorm": 0, "ssd_chunk": 0}
+    assert launch_counts() == {"flash_attention": 0, "paged_attention": 0, "rmsnorm": 0,
+                               "ssd_chunk": 0}
 
 
 def test_wrappers_raise_on_devices_without_a_kernel():
@@ -261,6 +262,7 @@ def test_port_uses_no_triton():
     assert [str(f) for f in files if pattern.search(f.read_text())] == []
     assert sorted(p.relative_to(SRC).as_posix() for p in SRC.rglob("*.cu")) == [
         "kernels/flash_attention/csrc/flash_attention.cu",
+        "kernels/paged_attention/csrc/paged_attention.cu",
         "kernels/rmsnorm/csrc/rmsnorm.cu",
         "kernels/ssd_scan/csrc/ssd_chunk.cu"]
 

@@ -189,8 +189,8 @@ def run(run_cfg, rules):
     drops = []
     route = layers._route
 
-    def counting(cfg_, p, xt):
-        r = route(cfg_, p, xt)
+    def counting(cfg_, p, xt, *real):
+        r = route(cfg_, p, xt, *real)
         drops.append(int((~r.keep).sum()))
         return r
 

@@ -33,6 +33,7 @@ from repro.serve.engine import ServeEngine as JaxServeEngine
 from repro_torch import convert
 from repro_torch.configs.registry import ARCHS as TORCH_ARCHS
 from repro_torch.configs.registry import smoke_config
+from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.models import layers as L
 from repro_torch.models import lm, modules
 from repro_torch.serve.engine import ServeEngine
@@ -129,6 +130,90 @@ def test_capacity(T, experts, want):
     assert L.moe_capacity(cfg, T) == want
 
 
+@pytest.mark.parametrize("share", [0.0, 0.3, 1.0])
+def test_real_rows_take_the_capacity_first(share):
+    """With a mask of real rows, a real row's choice takes the slot its
+    place among the real rows' choices gives, and a padded row's comes
+    after every real choice of its expert; all rows real gives the
+    unmasked routing bit for bit."""
+    cfg = f32(smoke_config("grok-1-314b")).replace(capacity_factor=0.25)
+    rng = np.random.RandomState(7)
+    T, E, k = 600, cfg.num_experts, cfg.top_k
+    xt = torch.from_numpy(rng.randn(T, cfg.d_model).astype(np.float32))
+    p = {"router": torch.from_numpy(rng.randn(cfg.d_model, E).astype(np.float32))}
+    real = torch.from_numpy(rng.rand(T) >= share)
+    r = L._route(cfg, p, xt, real)
+    plain = L._route(cfg, p, xt)
+    assert torch.equal(r.ids, plain.ids) and torch.equal(r.counts, plain.counts)
+    flat = r.ids.reshape(-1).numpy()
+    is_real = real.repeat_interleave(k).numpy()
+    want = np.empty_like(flat)
+    seen_real, seen_pad = np.zeros(E, np.int64), np.zeros(E, np.int64)
+    n_real = np.bincount(flat[is_real], minlength=E)
+    for i, e in enumerate(flat):
+        if is_real[i]:
+            want[i], seen_real[e] = seen_real[e], seen_real[e] + 1
+        else:
+            want[i], seen_pad[e] = n_real[e] + seen_pad[e], seen_pad[e] + 1
+    assert np.array_equal(r.slot.numpy(), want)
+    assert torch.equal(r.keep, r.slot < r.cap) and not r.keep.all()
+    if share == 0.0:
+        assert torch.equal(r.slot, plain.slot) and torch.equal(r.keep, plain.keep)
+
+
+def _zero_padded_rows(q, k, v, pool_k, pool_v, table, pos, adv, *, window=0):
+    """The plain paged attention with the rows at or past ``adv`` zeroed,
+    as the card's kernel writes them."""
+    out = paged_attention_ref(q, k, v, pool_k, pool_v, table, pos, adv, window=window)
+    real = torch.arange(q.shape[1])[None, :] < adv[:, None]
+    return out * real[:, :, None, None]
+
+
+@pytest.mark.parametrize("padding", ["other_tokens", "zero_attention"])
+def test_decode_chunk_real_rows_do_not_depend_on_the_padding(padding, monkeypatch):
+    """A tick whose expert capacity binds (4 slots x chunk 64, cf 0.25:
+    128 slots for 512 choices over 4 experts): the real rows' logits
+    are the same bits whatever the padded rows hold, other tokens than
+    the engine's zeros or the zero attention output the card's kernel
+    writes there, because padding takes the capacity last."""
+    cfg = f32(smoke_config("arctic-480b")).replace(capacity_factor=0.25)
+    params = lm.init_params(cfg, 0, "cpu")
+    B, C, bs = 4, 64, 16
+    nb = 8
+    pos = torch.tensor([40, 0, 70, 3], dtype=torch.int32)
+    adv = torch.tensor([1, 64, 0, 23], dtype=torch.int32)
+    table = torch.arange(1, 1 + B * nb, dtype=torch.int32).reshape(B, nb)
+    rng = np.random.RandomState(8)
+    real = torch.arange(C)[None, :] < adv[:, None]
+    toks = torch.from_numpy(rng.randint(1, cfg.vocab_size, (B, C)).astype(np.int32))
+    toks = torch.where(real, toks, 0)                     # the engine's padding
+    drops = []
+    route = L._route
+
+    def counting(*a):
+        r = route(*a)
+        drops.append(int((~r.keep).sum()))
+        return r
+
+    monkeypatch.setattr(L, "_route", counting)
+    logits = []
+    for variant in (False, True):
+        if variant and padding == "other_tokens":
+            toks = torch.where(real, toks, torch.from_numpy(
+                rng.randint(1, cfg.vocab_size, (B, C)).astype(np.int32)))
+        if variant and padding == "zero_attention":
+            monkeypatch.setattr(L, "paged_attention", _zero_padded_rows)
+        cache = lm.init_paged_cache(cfg, B, 1 + B * nb, bs, "cpu")
+        g = torch.Generator().manual_seed(9)
+        for a in cache["kv"].values():
+            a[:, 1:] = torch.randn(a[:, 1:].shape, generator=g)
+        with torch.no_grad():
+            lg, _ = lm.decode_chunk(cfg, params, toks, cache, table, pos, adv)
+        logits.append(lg[real])
+    assert torch.equal(logits[0], logits[1])
+    assert sum(drops) > 0             # the capacity binds
+
+
 # ---------------------------------------------------------------------------
 # Serving
 # ---------------------------------------------------------------------------
@@ -164,7 +249,8 @@ def serve(engine, staggered):
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_engine_greedy_tokens_match_jax(arch, staggered):
     """Both engines route every row of a tick, idle and padded rows
-    included (2 slots x chunk 4: 8 rows, far below the 128 slots)."""
+    included (2 slots x chunk 4: 8 rows, far below the 128 slots, where
+    the port's order, real rows first, changes nothing)."""
     jcfg, tcfg, jp, tp = world(arch)
     kw = dict(batch_slots=2, max_len=64, prefill_chunk=4)
     want = serve(JaxServeEngine(jcfg, jp, **kw), staggered)
